@@ -1,0 +1,41 @@
+"""Parameter initializers with torch-parity distributions (counterpart of
+``megacrn_tpu/nn/init.py``), drawn from an explicit ``torch.Generator``.
+
+* ``xavier_normal`` on 2-D weights: N(0, gain^2 * 2/(fan_in+fan_out)).
+* torch ``nn.Linear`` default for the projection head: U(-1/sqrt(fan_in),
+  1/sqrt(fan_in)) for weight and bias.
+
+Shapes follow the JAX package, ``(fan_in, fan_out)``. The draws happen on
+the CPU generator, so a seed gives the same weights whatever device the
+model then moves to.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def xavier_normal(shape, generator: torch.Generator, dtype=torch.float32,
+                  gain: float = 1.0) -> torch.Tensor:
+    fan_in, fan_out = shape[0], shape[1]
+    std = gain * math.sqrt(2.0 / (fan_in + fan_out))
+    return std * torch.randn(shape, generator=generator, dtype=dtype)
+
+
+def torch_linear_weight(shape, generator: torch.Generator,
+                        dtype=torch.float32) -> torch.Tensor:
+    """shape = (fan_in, fan_out), input-major like the JAX package."""
+    bound = 1.0 / math.sqrt(shape[0])
+    return _uniform(shape, -bound, bound, generator, dtype)
+
+
+def torch_linear_bias(fan_in: int, shape, generator: torch.Generator,
+                      dtype=torch.float32) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(fan_in)
+    return _uniform(shape, -bound, bound, generator, dtype)
+
+
+def _uniform(shape, lo, hi, generator, dtype):
+    return torch.empty(shape, dtype=dtype).uniform_(lo, hi,
+                                                    generator=generator)

@@ -1,0 +1,148 @@
+"""Inference / serving path (counterpart of ``megacrn_tpu/serve.py``).
+
+* ``Predictor``: stateless batch inference around a MegaCRN, raw speed
+  windows in, raw-scale forecasts out. Requests are chunked and padded to a
+  fixed batch (``max_batch``).
+* ``StreamingForecaster``: keeps a rolling window and emits a forecast every
+  time a new observation step arrives once the window is warm.
+
+``GTSPredictor`` and ``MegaCRNxPredictor`` come with their model families.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from megacrn_tpu_torch import resolve_device
+from megacrn_tpu_torch.config import MegaCRNConfig
+from megacrn_tpu_torch.interop import params_from_flat
+from megacrn_tpu_torch.models.megacrn import DTYPES, MegaCRN
+from megacrn_tpu_torch.ops.scaling import inverse_transform
+
+
+class Predictor:
+    """Batch forecaster around a trained MegaCRN.
+
+    Args:
+      params_or_model: a ``MegaCRN`` module (moved to ``device`` in place,
+        as ``nn.Module.to`` does), or its weights in the JAX
+        package's flat ``{path: array}`` naming (a reference state_dict
+        loads into a ``MegaCRN`` with ``load_state_dict``).
+      cfg: model config.
+      scaler_mean / scaler_std: the training normalisation stats.
+      max_batch: the fixed batch; smaller requests are padded, larger ones
+        chunked.
+      road_supports: the ``StackedRoadPack`` of a ``road_sparse`` config;
+        its forward pack is moved to ``device`` and cast to the compute
+        dtype here.
+      device: where the model runs; the card unless the caller says
+        otherwise (``resolve_device``).
+    """
+
+    def __init__(self, params_or_model, cfg: MegaCRNConfig,
+                 scaler_mean: float = 0.0, scaler_std: float = 1.0,
+                 max_batch: int = 64, road_supports=None, device=None):
+        self.device = resolve_device(device)
+        if isinstance(params_or_model, nn.Module):
+            model = params_or_model.to(self.device)
+        else:
+            model = MegaCRN(cfg, device=self.device)
+            model.load_state_dict(params_from_flat(params_or_model, cfg))
+        self.model = model.eval()
+        self.cfg = cfg
+        self.mean = float(scaler_mean)
+        self.std = float(scaler_std)
+        self.max_batch = max_batch
+        # Cast once here, so the forward's cast to compute_dtype is a no-op.
+        self.road_supports = (None if road_supports is None
+                              else road_supports.to(
+                                  self.device, DTYPES[cfg.compute_dtype]))
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: MegaCRNConfig,
+                        max_batch: int = 64, road_supports=None,
+                        device=None) -> "Predictor":
+        """Load an ``.npz`` checkpoint written by either package's
+        ``train.checkpoint.save_checkpoint``; the scaler stats come from its
+        metadata."""
+        from megacrn_tpu_torch.train import checkpoint as ckpt
+
+        flat, _, meta = ckpt.load_checkpoint(path)
+        return cls(flat, cfg, meta.get("scaler_mean", 0.0),
+                   meta.get("scaler_std", 1.0), max_batch,
+                   road_supports=road_supports, device=device)
+
+    @torch.inference_mode()
+    def _forward(self, x: np.ndarray, y_cov: np.ndarray) -> np.ndarray:
+        x = torch.tensor(x, device=self.device)  # a copy: edited in place
+        y_cov = torch.tensor(y_cov, device=self.device)
+        x[..., 0] = (x[..., 0] - self.mean) / self.std
+        out = self.model(x[..., :self.cfg.input_dim], y_cov,
+                         road_supports=self.road_supports)
+        return inverse_transform(out.output, self.std,
+                                 self.mean).cpu().numpy()
+
+    def predict(self, x: np.ndarray,
+                y_cov: Optional[np.ndarray] = None) -> np.ndarray:
+        """x: (B, seq_len, N, >=1) RAW (unnormalised) windows, channel 0 =
+        speed; y_cov: (B, horizon, N, ycov_dim) decoder covariates (zeros if
+        omitted). Returns (B, horizon, N, output_dim) raw-scale forecasts."""
+        cfg = self.cfg
+        x = np.asarray(x, np.float32)
+        if y_cov is None:
+            y_cov = np.zeros((x.shape[0], cfg.horizon, cfg.num_nodes,
+                              cfg.ycov_dim), np.float32)
+        return _run_batched(self._forward, self.max_batch,
+                            (x, np.asarray(y_cov, np.float32)))
+
+
+def _run_batched(fwd, max_batch: int, arrays) -> np.ndarray:
+    """Chunk/pad a request to the fixed batch size and call ``fwd`` on each
+    chunk; padding repeats the last row. ``arrays``: tuple of (B, ...) numpy
+    arrays."""
+    b = arrays[0].shape[0]
+    outs = []
+    for s in range(0, b, max_batch):
+        chunk = [a[s:s + max_batch] for a in arrays]
+        nb = len(chunk[0])
+        if nb < max_batch:
+            pad = max_batch - nb
+            chunk = [np.concatenate([c, np.repeat(c[-1:], pad, 0)])
+                     for c in chunk]
+        outs.append(np.asarray(fwd(*chunk))[:nb])
+    return np.concatenate(outs, axis=0)
+
+
+class StreamingForecaster:
+    """Online serving: push one observation step at a time, get a forecast
+    once the window is warm.
+
+    ``push(obs)`` with obs (N,) or (N, C); returns (horizon, N, output_dim)
+    forecast or None while warming up.
+    """
+
+    def __init__(self, predictor: Predictor, cov_fn=None):
+        self.predictor = predictor
+        self.cfg = predictor.cfg
+        self._window: list = []
+        self._cov_fn = cov_fn  # optional t -> (horizon, N, ycov) covariates
+        self._t = 0
+
+    def push(self, obs: np.ndarray) -> Optional[np.ndarray]:
+        obs = np.asarray(obs, np.float32)
+        if obs.ndim == 1:
+            obs = obs[:, None]
+        self._window.append(obs)
+        self._t += 1
+        if len(self._window) > self.cfg.seq_len:
+            self._window.pop(0)
+        if len(self._window) < self.cfg.seq_len:
+            return None
+        x = np.stack(self._window)[None]  # (1, T, N, C)
+        y_cov = None
+        if self._cov_fn is not None:
+            y_cov = np.asarray(self._cov_fn(self._t), np.float32)[None]
+        return self.predictor.predict(x, y_cov)[0]

@@ -1,0 +1,50 @@
+"""The port imports nothing of JAX and nothing of the JAX package."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import megacrn_tpu_torch
+names = ["megacrn_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(megacrn_tpu_torch.__path__,
+                                          "megacrn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "megacrn_tpu" or m.startswith("megacrn_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import json
+
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for mod in ("megacrn_tpu_torch.serve", "megacrn_tpu_torch.kernels._build",
+                "megacrn_tpu_torch.kernels.spmm_coo",
+                "megacrn_tpu_torch.models.megacrn"):
+        assert mod in res["modules"]
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names neither JAX nor the JAX package in its imports."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    top = {n.split(".")[0] for n in names}
+    assert not top & {"jax", "jaxlib", "megacrn_tpu"}, sorted(names)
