@@ -2,13 +2,14 @@
 ``megacrn_tpu/config.py``).
 
 The port keeps its own copy: it imports nothing of the JAX package. Only the
-fields the serving slice reads are here; the training fields
-(``cl_decay_steps``, ``use_curriculum_learning``, ``remat``), ``dense_impl``
-and the training and mesh configs come with the slices that use them.
+fields the serving and training slices read are here: ``remat`` and
+``dense_impl``, the mesh config and the other dataset presets come with the
+slices that use them.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,12 +31,15 @@ class MegaCRNConfig:
     ycov_dim: int = 1
     mem_num: int = 20
     mem_dim: int = 64
+    cl_decay_steps: int = 2000
+    use_curriculum_learning: bool = True
     # Matmul-input dtype: "float32" | "bfloat16" | "float64" (CPU parity
     # control). The memory read and the output stay at >= float32.
     compute_dtype: str = "float32"
     # Graph aggregation backend. The port runs "dense" (learned meta-graph)
-    # and "road_sparse" with a StackedRoadPack (block-COO kernel); the
-    # others raise NotImplementedError until their ROADMAP slice lands.
+    # and "road_sparse" with a StackedRoadPack (block-COO kernel) or
+    # block-ELL pairs (block-ELL kernel); the others raise
+    # NotImplementedError until their ROADMAP slice lands.
     graph_backend: str = "dense"
 
     def __post_init__(self):
@@ -56,6 +60,39 @@ class MegaCRNConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-protocol hyper-parameters.
+
+    Defaults are the published METR-LA/PEMS-BAY protocol
+    (``model/traintest_MegaCRN.py:162-185``); the EXPY-TKY preset overrides
+    them per ``model_EXPYTKY/traintest_MegaCRN.py:152-176``.
+    """
+
+    lr: float = 0.01
+    epsilon: float = 1e-3  # Adam eps
+    lr_milestones: Tuple[int, ...] = (50, 100)  # epochs
+    lr_decay_ratio: float = 0.1
+    max_grad_norm: Optional[float] = 5.0  # None = no clipping (EXPY-TKY)
+    batch_size: int = 64
+    epochs: int = 200
+    patience: int = 20
+    lamb: float = 0.01  # triplet (separate) loss weight
+    lamb1: float = 0.01  # compact loss weight
+    # 'masked_mae_inv': masked MAE on inverse-transformed scale (METR-LA/BAY,
+    #   model/traintest_MegaCRN.py:118-120); 'l1_normalized': plain L1 on the
+    #   normalized scale (EXPY-TKY, model_EXPYTKY/traintest_MegaCRN.py:76-94).
+    pred_loss: str = "masked_mae_inv"
+    seed: Optional[int] = None  # traintestv1 uses 100; canonical is unseeded
+    val_ratio: float = 0.125  # of trainval, METR-LA protocol
+    # EXPY-TKY harness re-initializes every weight with xavier_uniform / bias
+    # uniform after construction (model_EXPYTKY/traintest_MegaCRN.py:27-35).
+    reinit_xavier_uniform: bool = False
+    # Eval aggregation: 'per_batch' reproduces README numbers
+    # (model/traintest_MegaCRN.py:72-98); 'concat' is the traintestv1 flavor.
+    eval_aggregation: str = "per_batch"
+
+
+@dataclasses.dataclass(frozen=True)
 class DatasetConfig:
     """The dataset shape a model preset reads. The data pipeline's fields
     (interval, loader, directory) and the other presets come with the data
@@ -66,7 +103,7 @@ class DatasetConfig:
     horizon: int
 
 
-# Published benchmark presets (BASELINE.md) that the serving slice runs.
+# Published benchmark presets (BASELINE.md) that the port runs so far.
 DATASETS = {
     "METRLA": DatasetConfig(207, 12, 12),
     "EXPYTKY": DatasetConfig(1843, 6, 6),
@@ -84,3 +121,23 @@ def model_config_for(dataset: str, **overrides) -> MegaCRNConfig:
         base.update(rnn_units=32, mem_num=10, mem_dim=32)
     base.update(overrides)
     return MegaCRNConfig(**base)
+
+
+def train_config_for(dataset: str, **overrides) -> TrainConfig:
+    """Training protocol per dataset preset (METRLA, EXPYTKY)."""
+    if dataset not in DATASETS:
+        raise KeyError(f"no training preset for {dataset!r}; the port has "
+                       f"{sorted(DATASETS)}")
+    base: dict = {}
+    if dataset == "EXPYTKY":
+        # model_EXPYTKY/traintest_MegaCRN.py:152-176; the EXPY-TKY harness
+        # builds Adam WITHOUT the eps override (:74 - torch default 1e-8)
+        # and reshuffles every epoch (torch DataLoader(shuffle=True), :71).
+        base.update(
+            lr=0.001, epsilon=1e-8, lr_milestones=(200,), max_grad_norm=None,
+            patience=10, lamb=0.01, lamb1=0.0, epochs=200,
+            pred_loss="l1_normalized", val_ratio=0.25,
+            reinit_xavier_uniform=True,
+        )
+    base.update(overrides)
+    return TrainConfig(**base)

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/<name>-<hash>.so`` at the root of the
-checkout, at first use; the hash covers the source and the flags, so an
-edited kernel is rebuilt and an unchanged one is reused. The library is
-loaded with ``ctypes``. A failed build raises with the compiler's output.
+checkout, at first use; the hash covers the source, the shared headers
+``csrc/*.cuh`` it may include, and the flags, so an edited kernel or header
+is rebuilt and an unchanged one is reused. ``build_many`` starts one
+``nvcc`` per source, all at once. The library is loaded with ``ctypes``. A
+failed build raises with the compiler's output.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on a machine with no ``nvcc``.
@@ -16,8 +18,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -29,7 +32,9 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -45,23 +50,35 @@ def _nvcc() -> str:
                        "first use")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
-    compiler's output (ptxas reports registers and shared memory per
-    kernel), or "" when the library was already there."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed: {name}: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+def build_many(names: Sequence[str]) -> Dict[str, Tuple[float, str]]:
+    """Compile each ``csrc/<name>.cu`` that is not built yet, one ``nvcc``
+    per source, all started together. Returns ``{name: (seconds, compiler
+    output)}`` (ptxas reports registers and shared memory per kernel); a
+    library that was already there gives ``(0.0, "")``.
+    Raises with the compiler's output if any build fails."""
+    procs = {}
+    out: Dict[str, Tuple[float, str]] = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            out[name] = (0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        procs[name] = (lib, tmp, time.perf_counter(), subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (lib, tmp, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        out[name] = (time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return out
 
 
 def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
@@ -69,7 +86,7 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     ``declare`` sets its functions' ctypes signatures."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
+        build_many([name])
         lib = ctypes.CDLL(str(library_path(name)))
         declare(lib)
         _loaded[name] = lib

@@ -25,38 +25,27 @@
 // forward), not by its ~9 GFLOP of nonzero work. This design multiplies
 // every stored tile as if it were dense (2*128*128*f flops per tile, ~2.2
 // TFLOP per forward), so it runs at the FP32 FMA rate of the CUDA cores,
-// far above the byte bound. Within that choice: a 128 x 64 output tile per
-// block, 8 x 4 outputs per thread in registers, the tile and x slab staged
-// in 32-deep chunks through shared memory, so each shared-memory value read
-// feeds 4 or 8 FMAs.
+// far above the byte bound. The tile product itself (128 x 64 output tile
+// per block, 8 x 4 outputs per thread in registers, 32-deep staged chunks)
+// is tile_spmm.cuh's, shared with the block-ELL kernel spmm_ell.cu.
 //
 // What this simple design leaves for later: skipping the zeros inside a
 // stored tile (the work the data needs is 2*nnz*f flops); bf16 goes through
 // the FP32 FMA path; loads are synchronous (no cp.async / TMA double
 // buffering); every feature tile re-reads its row-block's tiles (from L2);
 // scalar rather than vector loads.
-#include <cuda_bf16.h>
+//
+// The backward of y = A @ x (dx = A^T g) is this same kernel on the
+// transposed pack (kernels/spmm_coo.py:SpmmCOOFunction).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tile_spmm.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;    // tile edge: output rows per block, tile depth
-constexpr int kBN = 64;        // feature columns per block
-constexpr int kBK = 32;        // depth of one staged chunk of a tile
-constexpr int kThreads = 256;  // 16 row lanes x 16 column lanes
-constexpr int kTM = kBlock / 16;  // 8 output rows per thread
-constexpr int kTN = kBN / 16;     // 4 output columns per thread
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, like torch's cast
-}
+using namespace tile_spmm;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -64,67 +53,17 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ cols, const T* __restrict__ data,
                     const T* __restrict__ x, T* __restrict__ y, int n_orig,
                     int n_col_orig, int f) {
-  // a_s[k][r] = tile[r][k0 + k] (transposed; the +1 pad keeps the
-  // transposing store free of bank conflicts), x_s[k][n] = x slab.
-  __shared__ float a_s[kBK][kBlock + 1];
-  __shared__ float x_s[kBK][kBN];
-
+  __shared__ Stage stage;
   const int rb = blockIdx.x;
   const int j0 = blockIdx.y * kBN;
-  const int tx = threadIdx.x % 16;  // output columns tx + 16 * j
-  const int ty = threadIdx.x / 16;  // output rows ty + 16 * i
-
   float acc[kTM][kTN] = {};
-
   const int t_end = row_ptr[rb + 1];
   for (int t = row_ptr[rb]; t < t_end; ++t) {
-    const T* tile = data + static_cast<int64_t>(t) * kBlock * kBlock;
-    const int64_t x_row0 = static_cast<int64_t>(cols[t]) * kBlock;
-    for (int k0 = 0; k0 < kBlock; k0 += kBK) {
-#pragma unroll
-      for (int i = 0; i < kBlock * kBK / kThreads; ++i) {
-        const int e = threadIdx.x + i * kThreads;
-        const int r = e / kBK, c = e % kBK;
-        a_s[c][r] = to_f32(tile[r * kBlock + k0 + c]);
-      }
-#pragma unroll
-      for (int i = 0; i < kBK * kBN / kThreads; ++i) {
-        const int e = threadIdx.x + i * kThreads;
-        const int kk = e / kBN, n = e % kBN;
-        const int64_t row = x_row0 + k0 + kk;
-        const int col = j0 + n;
-        x_s[kk][n] = (row < n_col_orig && col < f)
-                         ? to_f32(x[row * f + col])
-                         : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        float a[kTM], b[kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) a[i] = a_s[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) b[j] = x_s[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    accumulate_tile(data + static_cast<int64_t>(t) * kBlock * kBlock, x,
+                    static_cast<int64_t>(cols[t]) * kBlock, n_col_orig, f, j0,
+                    stage, acc);
   }
-
-  const int64_t row0 = static_cast<int64_t>(rb) * kBlock;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int64_t row = row0 + ty + 16 * i;
-    if (row >= n_orig) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = j0 + tx + 16 * j;
-      if (col < f) store(&y[row * f + col], acc[i][j]);
-    }
-  }
+  store_tile(y, acc, rb, n_orig, f, j0);
 }
 
 template <typename T>

@@ -21,8 +21,9 @@ Two implementations of ``y = A @ x``:
   ``kernels/csrc/spmm_coo.cu``. A CPU tensor takes the plain version; a
   CUDA tensor launches the kernel or raises.
 
-Only the forward is here. The backward (``dx = A^T g``, the same kernel on
-``pack_t``) comes with the training slice as a ``torch.autograd.Function``.
+``SpmmCOOFunction`` makes ``spmm_coo`` differentiable in x: its backward
+is ``dx = A^T g`` through the same wrapper (and so the same kernel) on the
+transposed pack, and gives the pack no gradient (it is a graph constant).
 """
 from __future__ import annotations
 
@@ -139,11 +140,15 @@ class StackedRoadPack(NamedTuple):
     n_pad: int  # per-support padded node count (slice stride in the stack)
     impl: str = "kernel"
 
-    def to(self, device=None, dtype=None) -> "StackedRoadPack":
-        """Move and cast the forward ``pack``. ``pack_t`` is read only by
-        the backward, so it stays where it is (on the host) until the
-        training slice moves it."""
-        return self._replace(pack=self.pack.to(device, dtype))
+    def to(self, device=None, dtype=None,
+           transpose: bool = False) -> "StackedRoadPack":
+        """Move and cast the forward ``pack``, and ``pack_t`` too when
+        ``transpose`` is set. ``pack_t`` is read only by the backward, so
+        serving leaves it where it is (on the host); training moves it."""
+        out = self._replace(pack=self.pack.to(device, dtype))
+        if transpose:
+            out = out._replace(pack_t=self.pack_t.to(device, dtype))
+        return out
 
 
 def build_stacked_road_pack(supports, impl: str = "kernel") -> StackedRoadPack:
@@ -237,6 +242,24 @@ def _launch(a: BlockCOO, x: torch.Tensor) -> torch.Tensor:
                            f"({lib.spmm_coo_error_string(rc).decode()})")
     spmm_coo.launches += 1
     return y
+
+
+class SpmmCOOFunction(torch.autograd.Function):
+    """y = A @ x through ``spmm_coo``, differentiable in x:
+    ``SpmmCOOFunction.apply(x, a, a_t)``. The backward is ``dx = A^T g``
+    through ``spmm_coo`` on ``a_t`` (the kernel on the card, one launch), and
+    the packs get no gradient (counterpart of the JAX custom VJP
+    ``_spmm_coo_cv``)."""
+
+    @staticmethod
+    def forward(ctx, x, a: BlockCOO, a_t: BlockCOO):
+        ctx.a_t = a_t
+        return spmm_coo(a, x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return spmm_coo(ctx.a_t, g.contiguous()), None, None
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -47,21 +47,30 @@ def cheb_aggregate_sparse_stacked(packs, x: torch.Tensor,
     block-diagonal COO pack (``kernels.spmm_coo.StackedRoadPack``): the
     recursion over all S supports runs on stacked features, so each
     Chebyshev level is one SpMM. Output layout/order identical to
-    ``cheb_aggregate``."""
-    from megacrn_tpu_torch.kernels.spmm_coo import (spmm_coo,
+    ``cheb_aggregate``.
+
+    ``packs.impl == "kernel"`` goes through ``SpmmCOOFunction`` (its
+    backward is the same kernel on ``packs.pack_t``); ``"reference"`` runs
+    ``spmm_coo_reference``, which autograd differentiates by itself."""
+    from megacrn_tpu_torch.kernels.spmm_coo import (SpmmCOOFunction,
                                                     spmm_coo_reference)
 
-    apply = spmm_coo if packs.impl == "kernel" else spmm_coo_reference
+    if packs.impl == "kernel":
+        def apply(v):
+            return SpmmCOOFunction.apply(v, packs.pack, packs.pack_t)
+    else:
+        def apply(v):
+            return spmm_coo_reference(packs.pack, v)
     s_num, n_pad = packs.num_supports, packs.n_pad
     b, n, c = x.shape
     flat = x.permute(1, 0, 2).reshape(n, b * c)
     xp = flat.new_zeros((n_pad, b * c))
     xp[:n] = flat
     x_stack = xp.repeat(s_num, 1)  # (S*n_pad, f), contiguous
-    t_prev, t_cur = x_stack, apply(packs.pack, x_stack)
+    t_prev, t_cur = x_stack, apply(x_stack)
     levels = [None, t_cur]  # level 0 is `flat` itself
     for _ in range(2, cheb_k):
-        t_prev, t_cur = t_cur, 2.0 * apply(packs.pack, t_cur) - t_prev
+        t_prev, t_cur = t_cur, 2.0 * apply(t_cur) - t_prev
         levels.append(t_cur)
     terms = [flat if k == 0 else levels[k][s * n_pad:s * n_pad + n]
              for s in range(s_num) for k in range(cheb_k)]
@@ -69,11 +78,33 @@ def cheb_aggregate_sparse_stacked(packs, x: torch.Tensor,
     return stack.view(n, s_num * cheb_k, b, c).permute(2, 0, 1, 3)
 
 
+def cheb_aggregate_sparse(packs, x: torch.Tensor,
+                          cheb_k: int) -> torch.Tensor:
+    """Chebyshev stack over static sparse supports through the block-ELL
+    SpMM (``kernels.spmm``), support by support, in the same support-major
+    order as ``cheb_aggregate``.
+
+    packs: sequence of ``(BlockELL, BlockELL_t)`` pairs, one per support.
+    """
+    from megacrn_tpu_torch.kernels.spmm import spmm_batched
+
+    terms = []
+    for pack, pack_t in packs:
+        t_prev, t_cur = x, spmm_batched(pack, pack_t, x)
+        terms += [t_prev, t_cur]
+        for _ in range(2, cheb_k):
+            t_prev, t_cur = t_cur, (
+                2.0 * spmm_batched(pack, pack_t, t_cur) - t_prev)
+            terms.append(t_cur)
+    return torch.stack(terms, dim=2)
+
+
 def dual_random_walk_supports(adj) -> tuple:
     """DCRNN-style dual random-walk normalisation of a static road
     adjacency: ``[(D^-1 A)^T, (D^-1 A^T)^T]`` as two dense numpy matrices
     with the pattern of adj / adj^T (pack with
-    ``kernels.spmm_coo.build_stacked_road_pack``)."""
+    ``kernels.spmm_coo.build_stacked_road_pack`` or
+    ``kernels.spmm.build_road_ell_pairs``)."""
 
     def rw(a):
         d = a.sum(1)

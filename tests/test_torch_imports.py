@@ -30,7 +30,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res["bad"] == []
     for mod in ("megacrn_tpu_torch.serve", "megacrn_tpu_torch.kernels._build",
                 "megacrn_tpu_torch.kernels.spmm_coo",
-                "megacrn_tpu_torch.models.megacrn"):
+                "megacrn_tpu_torch.kernels.spmm",
+                "megacrn_tpu_torch.models.megacrn",
+                "megacrn_tpu_torch.ops.losses",
+                "megacrn_tpu_torch.train.optim",
+                "megacrn_tpu_torch.train.steps"):
         assert mod in res["modules"]
 
 
