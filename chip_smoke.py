@@ -25,7 +25,8 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
 6. Dense branch: the METR-LA preset (learned meta-graph, no kernel) served
    once and checked against the CPU.
 7. The training slice: train steps of the same preset (batch 64, scheduled
-   sampling, EXPY-TKY protocol) through ``train.steps.make_train_step``,
+   sampling, EXPY-TKY protocol with the clip at 5) through
+   ``train.steps.make_train_step``,
    once with the block-COO ``StackedRoadPack`` and once with block-ELL
    pairs: finite losses, kernel launches per step (forward and backward)
    against counts derived from the config, gradients against the same step
@@ -58,7 +59,6 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
 # Gradients of one train step, kernel path against plain path: f32, only
 # the summation order differs (per array: rtol, atol relative to max|g|).
 GRAD_TOL = (1e-4, 1e-5)
-BATCH = 64
 
 
 def require(cond, msg):
@@ -89,34 +89,43 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def slice_widths(cfg):
+def slice_widths(cfg, batch):
     """{role: (f, forward launches, backward launches)} of one SpMM pack
-    (the stacked COO pack, or one support's block-ELL pack) in one batch-64
-    train step: the feature width of each aggregation, (cheb_k - 1) launches
-    per aggregation and time step. The backward skips layer 0's first
-    encoder [x || h] aggregation, which holds nothing that needs a
-    gradient."""
+    (the stacked COO pack, or one support's block-ELL pack) in one train
+    step of a one-layer model (nn/cell.py): each cell step aggregates its
+    gate input [x || h] and its candidate input, each through (cheb_k - 1)
+    launches, at the feature width f = batch * channels. The backward
+    launches once per forward launch but for the first encoder step's
+    [x || h] aggregation: the input and the zero state need no gradient."""
+    require(cfg.num_layers == 1, "slice_widths counts a one-layer model")
     lev = cfg.cheb_k - 1
     enc, dec = cfg.seq_len * lev, cfg.horizon * lev
-    return {"enc_gate": (BATCH * (cfg.input_dim + cfg.rnn_units), enc,
+    return {"enc_gate": (batch * (cfg.input_dim + cfg.rnn_units), enc,
                          enc - lev),
-            "enc_cand": (BATCH * cfg.rnn_units, enc, enc),
-            "dec_gate": (BATCH * (cfg.output_dim + cfg.ycov_dim
+            "enc_cand": (batch * cfg.rnn_units, enc, enc),
+            "dec_gate": (batch * (cfg.output_dim + cfg.ycov_dim
                                   + cfg.decoder_dim), dec, dec),
-            "dec_cand": (BATCH * cfg.decoder_dim, dec, dec)}
+            "dec_cand": (batch * cfg.decoder_dim, dec, dec)}
 
 
-def launches_per_step(cfg, kind):
-    """(forward, backward) kernel launches of one train step, derived from
-    the config (nn/cell.py: two aggregations per cell step and layer, each
-    (cheb_k - 1) launches for the stacked COO pack, which takes all supports
-    at once, and num_supports times that for block-ELL). The backward
-    launches once per forward launch but for layer 0's first encoder
-    [x || h] aggregation: the input and the zero state need no gradient."""
+def launches_per_step(cfg, kind, batch):
+    """(forward, backward) kernel launches of one train step: the sums of
+    ``slice_widths``, once for the stacked COO pack, which takes all
+    supports at once, and once per support for block-ELL."""
     packs = 1 if kind == "stacked_coo" else cfg.num_supports
-    per_agg = (cfg.cheb_k - 1) * packs
-    fwd = (cfg.seq_len + cfg.horizon) * cfg.num_layers * 2 * per_agg
-    return fwd, fwd - per_agg
+    widths = slice_widths(cfg, batch).values()
+    return (packs * sum(n for _, n, _ in widths),
+            packs * sum(n for _, _, n in widths))
+
+
+def reset_launches(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def read_launches(*kernels):
+    """{kernel name: launches since the last reset}."""
+    return {kernel_name(k): k.launches for k in kernels}
 
 
 def kernel_name(kernel):
@@ -220,7 +229,7 @@ def edge_cases(to_pack):
 def time_packs(kernel, plain, packs, widths, dev, gen, dtype, tag):
     """Kernel vs plain (and the library call) on each pack at each slice
     width; returns totals over one train step's launches: forward (``ms``,
-    ``plain_ms``, ``library_ms``, ``bound_ms`` per batch-64 forward) and,
+    ``plain_ms``, ``library_ms``, ``bound_ms`` per forward) and,
     for the transposed packs, the backward's kernel ms and bound ms."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "max_abs_err": 0.0, "backward_ms": 0.0, "backward_bound_ms": 0.0}
@@ -248,7 +257,7 @@ def time_packs(kernel, plain, packs, widths, dev, gen, dtype, tag):
     return tot
 
 
-def phase_kernels(sp, se, stacked, pairs, cfg, dev):
+def phase_kernels(sp, se, stacked, pairs, cfg, batch, dev):
     """Phase 3; returns the JSON entries of spmm_coo and spmm_ell
     (launches filled later)."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -263,19 +272,19 @@ def phase_kernels(sp, se, stacked, pairs, cfg, dev):
                            csr=csr_of(pack))
     print(f"slice pack: {int((stacked.pack.data != 0).sum())} nonzeros in "
           f"{stacked.pack.data.shape[0]} stored 128x128 tiles")
-    widths = slice_widths(cfg)
+    widths = slice_widths(cfg, batch)
     entries = {}
     for kernel, plain, packs, kind in (
             (sp.spmm_coo, sp.spmm_coo_reference,
              [(stacked.pack, stacked.pack_t)], "stacked_coo"),
             (se.spmm, se.spmm_reference, pairs, "block_ell")):
-        n_fwd, n_bwd = launches_per_step(cfg, kind)
+        n_fwd, n_bwd = launches_per_step(cfg, kind, batch)
         per_forward = {}
         for dtype in (torch.float32, torch.bfloat16):
             tot = time_packs(kernel, plain, packs, widths, dev, gen, dtype,
                              "slice_s" if kind == "block_ell" else "slice_")
             per_forward[dtype] = tot
-            print(f"{kernel_name(kernel)} per batch-64 forward "
+            print(f"{kernel_name(kernel)} per batch-{batch} forward "
                   f"({str(dtype)[6:]}, {n_fwd} launches; backward {n_bwd} "
                   f"launches): "
                   + json.dumps(tot))
@@ -300,11 +309,11 @@ def phase_kernels(sp, se, stacked, pairs, cfg, dev):
     return entries["stacked_coo"], entries["block_ell"]
 
 
-def phase_backward(sp, se, stacked, pairs, cfg, dev):
+def phase_backward(sp, se, stacked, pairs, cfg, batch, dev):
     """dx of both kernels' autograd Functions (one launch each on the
     transposed pack) against autograd through the plain versions, at the
     encoder gate's width, f32."""
-    f = slice_widths(cfg)["enc_gate"][0]
+    f = slice_widths(cfg, batch)["enc_gate"][0]
     gen = torch.Generator(device=dev).manual_seed(3)
     a_coo = (stacked.pack.to(dev), stacked.pack_t.to(dev))
     a_ell = tuple(p.to(dev) for p in pairs[0])
@@ -351,8 +360,9 @@ def close(got, want, std, what):
     return float(err.max())
 
 
-def phase_slice(sp, stacked, cfg):
-    """Phase 4 and 5; returns the kernel launches of the serving path."""
+def phase_slice(sp, se, stacked, cfg, batch):
+    """Phase 4 and 5; returns {kernel name: launches} of the serving
+    path."""
     from megacrn_tpu_torch.interop import flat_from_state_dict
     from megacrn_tpu_torch.models.megacrn import MegaCRN
     from megacrn_tpu_torch.serve import Predictor, StreamingForecaster
@@ -376,15 +386,17 @@ def phase_slice(sp, stacked, cfg):
     pred.predict(reqs[1])  # warm-up: library load, allocator, cuBLAS
     torch.cuda.synchronize()
 
-    sp.spmm_coo.launches = 0  # --- the serving path, counted ---
+    reset_launches(sp.spmm_coo, se.spmm)  # --- the serving path, counted ---
     outs, per_req = [], []
     for x in reqs:
         before = sp.spmm_coo.launches
         outs.append(pred.predict(x))
         per_req.append(sp.spmm_coo.launches - before)
-    launches = sp.spmm_coo.launches  # --- read just after ---
+    launches = read_launches(sp.spmm_coo, se.spmm)  # --- read just after ---
+    require(launches["spmm_ell"] == 0,
+            "the serving path on the StackedRoadPack launched spmm_ell")
 
-    fwd, _ = launches_per_step(cfg, "stacked_coo")
+    fwd, _ = launches_per_step(cfg, "stacked_coo", batch)
     for x, out, n in zip(reqs, outs, per_req):
         b = x.shape[0]
         chunks = -(-b // 64)
@@ -493,17 +505,17 @@ def phase_small_vs_cpu(dev):
               f"{err:.3e}")
 
 
-def train_batches(cfg, dev, n=2, seed=0):
-    """Normalised batch-64 (x, y, y_cov) triples on the card, from a seeded
+def train_batches(cfg, batch, dev, n=2, seed=0):
+    """Normalised (x, y, y_cov) batches on the card, from a seeded
     RandomState, with 2% exact zeros in the targets."""
     rs = np.random.RandomState(seed)
     out = []
     for _ in range(n):
-        x = (requests(rs, BATCH, cfg) - 45.0) / 15.0
-        y = (rs.uniform(0.0, 70.0, (BATCH, cfg.horizon, cfg.num_nodes, 1))
+        x = (requests(rs, batch, cfg) - 45.0) / 15.0
+        y = (rs.uniform(0.0, 70.0, (batch, cfg.horizon, cfg.num_nodes, 1))
              - 45.0) / 15.0
         y[rs.rand(*y.shape) < 0.02] = 0.0
-        yc = rs.uniform(0.0, 1.0, (BATCH, cfg.horizon, cfg.num_nodes, 1))
+        yc = rs.uniform(0.0, 1.0, (batch, cfg.horizon, cfg.num_nodes, 1))
         out.append(tuple(torch.tensor(a, dtype=torch.float32, device=dev)
                          for a in (x, y, yc)))
     return out
@@ -517,17 +529,17 @@ def _plain(road_supports):
     return road_supports._replace(impl="reference")
 
 
-def phase_train(sp, se, cfg, constants, dev):
+def phase_train(sp, se, cfg, tcfg, constants, dev):
     """Phase 7: the training slice on each graph constant. Returns
-    {kind: {"launches", "fwd", "bwd", "ms", "plain_ms"}}."""
-    from megacrn_tpu_torch.config import train_config_for
+    {kind: {"launches": {kernel name: launches in 5 steps}, "fwd", "bwd",
+    "ms", "plain_ms"}}."""
     from megacrn_tpu_torch.models.megacrn import MegaCRN
     from megacrn_tpu_torch.train.optim import make_optimizer
     from megacrn_tpu_torch.train.steps import make_loss_fn, make_train_step
 
-    tcfg = train_config_for("EXPYTKY")
     require(cfg.use_curriculum_learning, "curriculum learning is off")
-    batches = train_batches(cfg, dev)
+    require(tcfg.max_grad_norm is not None, "the clip is off")
+    batches = train_batches(cfg, tcfg.batch_size, dev)
     counters = {"stacked_coo": sp.spmm_coo, "block_ell": se.spmm}
     # Threshold ~0.5: the decoder feeds the label at about half its steps.
     bs0 = float(cfg.cl_decay_steps * np.log(cfg.cl_decay_steps))
@@ -535,7 +547,7 @@ def phase_train(sp, se, cfg, constants, dev):
     for kind, const in constants.items():
         counter = counters[kind]
         others = [c for k, c in counters.items() if k != kind]
-        want_fwd, want_bwd = launches_per_step(cfg, kind)
+        want_fwd, want_bwd = launches_per_step(cfg, kind, tcfg.batch_size)
         base = MegaCRN(cfg, generator=torch.Generator().manual_seed(0),
                        device=dev)
 
@@ -546,8 +558,7 @@ def phase_train(sp, se, cfg, constants, dev):
         for sup in (const, _plain(const)):
             model = copy.deepcopy(base)
             loss_fn = make_loss_fn(model, tcfg, road_supports=sup)
-            for c in counters.values():
-                c.launches = 0
+            reset_launches(*counters.values())
             loss = loss_fn(*batches[0], bs0,
                            torch.Generator(device=dev).manual_seed(1))
             fwd = counter.launches
@@ -609,23 +620,23 @@ def phase_train(sp, se, cfg, constants, dev):
         torch.cuda.reset_peak_memory_stats()
         step = steps(const, 2)
         run(step, 2, 0)  # warm-up
-        for c in counters.values():
-            c.launches = 0  # --- this slice's path, counted ---
+        reset_launches(*counters.values())  # --- this path, counted ---
         ms, kernel_losses = run(step, 5, 2)
-        launches = counter.launches  # --- read just after ---
-        require(launches == 5 * (want_fwd + want_bwd),
-                f"{kind}: {launches} {kernel_name(counter)} launches in 5 "
-                f"steps, expected 5 x ({want_fwd} + {want_bwd})")
-        require(all(c.launches == 0 for c in others),
-                f"{kind}: another kernel was launched")
+        launches = read_launches(*counters.values())  # --- read just after ---
+        n = launches[kernel_name(counter)]
+        require(n == 5 * (want_fwd + want_bwd),
+                f"{kind}: {n} {kernel_name(counter)} launches in 5 steps, "
+                f"expected 5 x ({want_fwd} + {want_bwd})")
+        require(sum(launches.values()) == n,
+                f"{kind}: another kernel was launched: {launches}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         plain_step = steps(_plain(const), 2)
         run(plain_step, 2, 0)
         plain_ms, _ = run(plain_step, 5, 2)
         print(f"train {kind}: losses {[round(v, 6) for v in kernel_losses]};"
               f" {ms:.3f} ms per train step, plain SpMM {plain_ms:.3f} ms "
-              f"(host clock to loss.item(), median of 5); {launches} "
-              f"{kernel_name(counter)} launches in 5 steps; peak device "
+              f"(host clock to loss.item(), median of 5); launches in 5 "
+              f"steps {launches}; peak device "
               f"memory {peak:.2f} GiB")
         profile(f"one {kind} train step",
                 lambda: step(*batches[0], bs0).item(), ms)
@@ -647,7 +658,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
 
     sys.path.insert(0, ROOT)
-    from megacrn_tpu_torch.config import model_config_for
+    from megacrn_tpu_torch.config import model_config_for, train_config_for
     from megacrn_tpu_torch.data.synthetic import synthetic_road_adjacency
     from megacrn_tpu_torch.kernels import _build
     from megacrn_tpu_torch.kernels import spmm as se
@@ -667,6 +678,10 @@ def main():
     # The EXPY-TKY preset over the synthetic stand-in of its road graph, as
     # the JAX CLI builds it for --dataset SYNTH.
     cfg = model_config_for("EXPYTKY", graph_backend="road_sparse")
+    # The EXPY-TKY protocol (Adam eps 1e-8, L1 on the normalised scale,
+    # batch 64) with the clip at 5, the METR-LA protocol's norm: the
+    # EXPY-TKY preset clips nothing, and each step here runs the clip.
+    tcfg = train_config_for("EXPYTKY", max_grad_norm=5.0)
     sups = list(dual_random_walk_supports(
         synthetic_road_adjacency(cfg.num_nodes, avg_degree=8, seed=0)))
     stacked = sp.build_stacked_road_pack(sups)
@@ -677,24 +692,25 @@ def main():
           f"(row blocks, max_blocks), nnz_blocks "
           f"{[int(a.nnz_blocks.sum()) for a, _ in pairs]}")
 
-    coo, ell = phase_kernels(sp, se, stacked, pairs, cfg, dev)
-    phase_backward(sp, se, stacked, pairs, cfg, dev)
-    serving = phase_slice(sp, stacked, cfg)
-    require(serving > 0, "the serving path launched no spmm_coo")
+    coo, ell = phase_kernels(sp, se, stacked, pairs, cfg, tcfg.batch_size,
+                             dev)
+    phase_backward(sp, se, stacked, pairs, cfg, tcfg.batch_size, dev)
+    serving = phase_slice(sp, se, stacked, cfg, tcfg.batch_size)
+    require(serving["spmm_coo"] > 0, "the serving path launched no spmm_coo")
     phase_small_vs_cpu(dev)
-    train = phase_train(sp, se, cfg, {"stacked_coo": stacked,
-                                      "block_ell": pairs}, dev)
+    train = phase_train(sp, se, cfg, tcfg, {"stacked_coo": stacked,
+                                            "block_ell": pairs}, dev)
+    # Each path's counts as read just after it (measured, zeros included).
+    by_path = {"serving_3_requests": serving,
+               "train_stacked_coo_5_steps": train["stacked_coo"]["launches"],
+               "train_block_ell_5_steps": train["block_ell"]["launches"]}
     for entry, kind in ((coo, "stacked_coo"), (ell, "block_ell")):
         res = train[kind]
-        require(res["launches"] > 0, f"the {kind} train path launched no "
-                                     f"{entry['name']}")
-        entry["launches"] = res["launches"]
-        entry["launches_by_path"] = {
-            "serving_3_requests": serving if kind == "stacked_coo" else 0,
-            "train_stacked_coo_5_steps": train["stacked_coo"]["launches"]
-            if kind == "stacked_coo" else 0,
-            "train_block_ell_5_steps": train["block_ell"]["launches"]
-            if kind == "block_ell" else 0}
+        name = entry["name"]
+        require(res["launches"][name] > 0,
+                f"the {kind} train path launched no {name}")
+        entry["launches"] = res["launches"][name]
+        entry["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         entry["train_step_forward_launches"] = res["fwd"]
         entry["train_step_backward_launches"] = res["bwd"]
         entry["train_step_ms"] = res["ms"]

@@ -61,8 +61,11 @@ class MegaCRNConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training-protocol hyper-parameters.
+    """Training-protocol hyper-parameters of one train step.
 
+    Only the fields the optimizer, the clip and the loss read are here; the
+    fit loop's (epochs, patience, seed, validation split, the EXPY-TKY
+    harness's xavier re-init, eval aggregation) come with that loop.
     Defaults are the published METR-LA/PEMS-BAY protocol
     (``model/traintest_MegaCRN.py:162-185``); the EXPY-TKY preset overrides
     them per ``model_EXPYTKY/traintest_MegaCRN.py:152-176``.
@@ -74,22 +77,12 @@ class TrainConfig:
     lr_decay_ratio: float = 0.1
     max_grad_norm: Optional[float] = 5.0  # None = no clipping (EXPY-TKY)
     batch_size: int = 64
-    epochs: int = 200
-    patience: int = 20
     lamb: float = 0.01  # triplet (separate) loss weight
     lamb1: float = 0.01  # compact loss weight
     # 'masked_mae_inv': masked MAE on inverse-transformed scale (METR-LA/BAY,
     #   model/traintest_MegaCRN.py:118-120); 'l1_normalized': plain L1 on the
     #   normalized scale (EXPY-TKY, model_EXPYTKY/traintest_MegaCRN.py:76-94).
     pred_loss: str = "masked_mae_inv"
-    seed: Optional[int] = None  # traintestv1 uses 100; canonical is unseeded
-    val_ratio: float = 0.125  # of trainval, METR-LA protocol
-    # EXPY-TKY harness re-initializes every weight with xavier_uniform / bias
-    # uniform after construction (model_EXPYTKY/traintest_MegaCRN.py:27-35).
-    reinit_xavier_uniform: bool = False
-    # Eval aggregation: 'per_batch' reproduces README numbers
-    # (model/traintest_MegaCRN.py:72-98); 'concat' is the traintestv1 flavor.
-    eval_aggregation: str = "per_batch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,9 +128,7 @@ def train_config_for(dataset: str, **overrides) -> TrainConfig:
         # and reshuffles every epoch (torch DataLoader(shuffle=True), :71).
         base.update(
             lr=0.001, epsilon=1e-8, lr_milestones=(200,), max_grad_norm=None,
-            patience=10, lamb=0.01, lamb1=0.0, epochs=200,
-            pred_loss="l1_normalized", val_ratio=0.25,
-            reinit_xavier_uniform=True,
+            lamb=0.01, lamb1=0.0, pred_loss="l1_normalized",
         )
     base.update(overrides)
     return TrainConfig(**base)
