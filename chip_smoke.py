@@ -9,12 +9,14 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    ``megacrn_tpu_torch/kernels/csrc`` with one nvcc each, all at once; print
    the build seconds and ptxas reports.
 3. Each kernel against its plain PyTorch version on the card, in f32 and
-   bf16, at edge shapes and at the shapes of the slices' paths, with times
-   (CUDA events), the bound from bytes and the nonzeros' operations, and a
-   one-call library yardstick, a sparse CSR product (timed only; the port
-   never calls it); the kernels on the transposed packs, as the backward
-   runs them; and the backward of both autograd Functions against autograd
-   through the plain versions.
+   bf16, at edge shapes (long rows among them) and at the shapes of the
+   slices' paths, with device times (CUDA events, the card held by a spin
+   kernel while the host enqueues) and the wrappers' host times, the bound
+   from the bytes and operations the nonzeros need, and a one-call library
+   yardstick, a sparse CSR product (timed only; the port never calls it);
+   the kernels on the transposed packs, as the backward runs them; and the
+   backward of both autograd Functions against autograd through the plain
+   versions.
 4. The serving path: the EXPY-TKY preset MegaCRN (N=1843, 6->6, batch 64) on
    the road_sparse backend over the synthetic road graph, weights from a
    seed, written as a JAX-format checkpoint and served through
@@ -55,6 +57,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (TF32 is off here) and bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Cycles of the spin kernel that holds the device while the host enqueues
+# timed calls: about 25 ms at the H100's 1.98 GHz boost clock.
+HOLD_CYCLES = 50_000_000
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
 # Gradients of one train step, kernel path against plain path: f32, only
 # the summation order differs (per array: rtol, atol relative to max|g|).
@@ -67,18 +72,33 @@ def require(cond, msg):
 
 
 def cuda_ms(fn, iters=10, warmup=2):
-    """Mean ms per call over ``iters`` calls, CUDA events, after warm-up."""
+    """(device ms, host ms) per call over ``iters`` calls, after warm-up.
+
+    A spin kernel enqueued first holds the device while the host enqueues
+    the calls, so the CUDA events around them time the device's work alone
+    and not the host's launch rate (a kernel of a few tens of microseconds
+    takes less time on the card than its Python wrapper takes on the host).
+    The hold doubles until the host is done before the device starts the
+    first call. The host clock around the enqueue gives the host's ms per
+    call."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    for attempt in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES << attempt)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0) / iters
+        held = not start.query()  # the device has not reached the calls yet
+        end.record()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters, host_ms
+    require(False, "the spin kernel never outlasted the host's enqueue")
 
 
 def card_line():
@@ -134,21 +154,19 @@ def kernel_name(kernel):
 
 
 def spmm_bound(pack, f, dtype):
-    """(bound_ms, bound_by) of y = A @ x for a BlockCOO or BlockELL pack:
-    each input read once (the real tiles, x, the indices), the output
-    written once, and 2*f flops for each nonzero of A in this run's data
-    (zeros inside a stored tile, and block-ELL's padding tiles, are no work
-    the function needs)."""
+    """(bound_ms, bound_by) of y = A @ x for a BlockCOO or BlockELL pack,
+    counted from what this run's matrix needs: its nonzeros (a value and a
+    4-byte column each) and row pointers read once, the rows of x that a
+    nonzero references read once, y written once, and 2*f flops a nonzero.
+    The stored 128x128 tiles are not counted: their zeros, and block-ELL's
+    padding tiles, are no work the function needs; nor are rows of x that
+    no nonzero references (the stacked pack's per-support padding)."""
     es = torch.tensor([], dtype=dtype).element_size()
-    flops = 2.0 * int((pack.data != 0).sum().item()) * f
-    if hasattr(pack, "row_ptr"):  # BlockCOO
-        tiles = pack.data.shape[0]
-        index_words = 2 * tiles + pack.row_ptr.numel()
-    else:  # BlockELL: the real tiles, their column indices, the counts
-        tiles = int(pack.nnz_blocks.sum().item())
-        index_words = tiles + pack.nnz_blocks.numel()
-    nbytes = (tiles * 128 * 128 * es + pack.col_dim_orig * f * es
-              + pack.n_orig * f * es + 4 * index_words)
+    nnz = pack.nz_vals.numel()
+    x_rows = torch.unique(pack.nz_cols).numel()
+    flops = 2.0 * nnz * f
+    nbytes = (nnz * (es + 4) + 4 * pack.nz_row_ptr.numel()
+              + x_rows * f * es + pack.n_orig * f * es)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -156,18 +174,13 @@ def spmm_bound(pack, f, dtype):
 
 def csr_of(pack):
     """The matrix a BlockCOO or BlockELL pack holds, as a torch sparse CSR
-    tensor of its original dims (the library yardstick's input; built from
-    the tiles)."""
-    nblk, ncblk = pack.n // 128, pack.col_dim // 128
-    tiles = pack.data.new_zeros((nblk, ncblk, 128, 128))
-    if hasattr(pack, "row_ptr"):
-        tiles[pack.rows.long(), pack.cols.long()] = pack.data
-    else:
-        for i in range(nblk):
-            for r in range(int(pack.nnz_blocks[i])):
-                tiles[i, int(pack.cols[i, r])] += pack.data[i, r]
-    dense = tiles.permute(0, 2, 1, 3).reshape(pack.n, pack.col_dim)
-    return dense[:pack.n_orig, :pack.col_dim_orig].contiguous().to_sparse_csr()
+    tensor of its original dims (the library yardstick's input), from the
+    pack's nonzero list; ``check_spmm`` holds its product against the plain
+    version, which reads the tiles."""
+    return torch.sparse_csr_tensor(
+        pack.nz_row_ptr[:pack.n_orig + 1].long(), pack.nz_cols.long(),
+        pack.nz_vals, size=(pack.n_orig, pack.col_dim_orig),
+        check_invariants=True)
 
 
 def check_spmm(kernel, plain, name, pack, x, csr):
@@ -197,10 +210,14 @@ def check_spmm(kernel, plain, name, pack, x, csr):
             ((lib - w).abs() <= atol + rtol * w.abs()).all().item()))
     require(lib_ok, f"library yardstick {name}: computes another function "
                     f"(max abs err {res['library_max_abs_err']:.3e})")
-    res["ms"] = cuda_ms(lambda: kernel(pack, x))
-    res["plain_ms"] = cuda_ms(lambda: plain(pack, x))
-    res["library_ms"] = cuda_ms(lambda: csr @ x)
+    res["ms"], res["host_ms"] = cuda_ms(lambda: kernel(pack, x))
+    res["plain_ms"] = cuda_ms(lambda: plain(pack, x))[0]
+    res["library_ms"] = cuda_ms(lambda: csr @ x)[0]
     res["bound_ms"], res["bound_by"] = spmm_bound(pack, x.shape[1], x.dtype)
+    # What the kernel gathers per nonzero (a row slab of x, mostly from L2),
+    # over its device time: the rate that holds it above its bound.
+    res["gather_TB_per_s"] = (pack.nz_vals.numel() * x.shape[1]
+                              * x.element_size() / res["ms"] / 1e9)
     print(kname, json.dumps(res))
     return res
 
@@ -208,12 +225,15 @@ def check_spmm(kernel, plain, name, pack, x, csr):
 def edge_cases(to_pack):
     """(name, pack, x) at the shapes the CPU tests also cover: an empty
     row-block, a rectangular pack, a hub row-block (block-ELL pads the
-    others), f = 6, 7, 19."""
+    others), f = 6, 7, 19 (the kernels' scalar path), and rows of 110 and
+    120 nonzeros (more than three of the kernels' 32-entry chunks) at
+    f = 40 (their 16-byte path)."""
     cases = []
     for name, seed, (r, c), f in (("empty_row_block", 0, (300, 300), 6),
                                   ("rectangular", 2, (96, 384), 7),
                                   ("f19", 8, (300, 300), 19),
-                                  ("hub_row", 3, (300, 300), 19)):
+                                  ("hub_row", 3, (300, 300), 19),
+                                  ("long_row", 4, (300, 300), 40)):
         rs = np.random.RandomState(seed)
         a = ((rs.rand(r, c) < 0.04) * rs.randn(r, c)).astype(np.float32)
         if name == "empty_row_block":
@@ -222,6 +242,9 @@ def edge_cases(to_pack):
             a[128:] = 0.0
             a[200:, 200:] = ((rs.rand(100, 100) < 0.05)
                              * rs.randn(100, 100))
+        if name == "long_row":
+            a[5, rs.choice(c, 120, replace=False)] = rs.randn(120)
+            a[rs.choice(r, 110, replace=False), 7] = rs.randn(110)
         cases.append((name, to_pack(a), rs.randn(c, f)))
     return cases
 
@@ -229,10 +252,12 @@ def edge_cases(to_pack):
 def time_packs(kernel, plain, packs, widths, dev, gen, dtype, tag):
     """Kernel vs plain (and the library call) on each pack at each slice
     width; returns totals over one train step's launches: forward (``ms``,
-    ``plain_ms``, ``library_ms``, ``bound_ms`` per forward) and,
-    for the transposed packs, the backward's kernel ms and bound ms."""
+    ``plain_ms``, ``library_ms``, ``bound_ms``, and ``host_ms``, the
+    wrapper's host time, per forward) and, for the transposed packs, the
+    backward's kernel ms and bound ms."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "max_abs_err": 0.0, "backward_ms": 0.0, "backward_bound_ms": 0.0}
+           "host_ms": 0.0, "max_abs_err": 0.0, "backward_ms": 0.0,
+           "backward_bound_ms": 0.0}
     for i, (pack, pack_t) in enumerate(packs):
         pack, pack_t = pack.to(dev, dtype), pack_t.to(dev, dtype)
         csr = csr_of(pack)
@@ -240,14 +265,14 @@ def time_packs(kernel, plain, packs, widths, dev, gen, dtype, tag):
             x = torch.randn((pack.col_dim_orig, f), generator=gen,
                             device=dev, dtype=torch.float32).to(dtype)
             res = check_spmm(kernel, plain, f"{tag}{i}_{role}", pack, x, csr)
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "host_ms"):
                 tot[k] += n_fwd * res[k]
             tot["max_abs_err"] = max(tot["max_abs_err"], res["max_abs_err"])
             tot["bound_by"] = res["bound_by"]
             if dtype == torch.float32:  # the backward's launches, on A^T
                 g = torch.randn((pack_t.col_dim_orig, f), generator=gen,
                                 device=dev)
-                bwd_ms = cuda_ms(lambda: kernel(pack_t, g))
+                bwd_ms = cuda_ms(lambda: kernel(pack_t, g))[0]
                 tot["backward_ms"] += n_bwd * bwd_ms
                 tot["backward_bound_ms"] += n_bwd * spmm_bound(
                     pack_t, f, dtype)[0]
@@ -270,7 +295,7 @@ def phase_kernels(sp, se, stacked, pairs, cfg, batch, dev):
                 check_spmm(kernel, plain, name, pack,
                            torch.from_numpy(x).to(dev, dtype),
                            csr=csr_of(pack))
-    print(f"slice pack: {int((stacked.pack.data != 0).sum())} nonzeros in "
+    print(f"slice pack: {stacked.pack.nz_vals.numel()} nonzeros in "
           f"{stacked.pack.data.shape[0]} stored 128x128 tiles")
     widths = slice_widths(cfg, batch)
     entries = {}
@@ -288,6 +313,12 @@ def phase_kernels(sp, se, stacked, pairs, cfg, batch, dev):
                   f"({str(dtype)[6:]}, {n_fwd} launches; backward {n_bwd} "
                   f"launches): "
                   + json.dumps(tot))
+            print(f"{kernel_name(kernel)} ({str(dtype)[6:]}) share of its "
+                  f"bound per forward: {tot['bound_ms'] / tot['ms']:.4f} "
+                  f"(bound {tot['bound_ms']:.4f} ms, {tot['bound_by']}; "
+                  f"kernel {tot['ms']:.4f} ms; library "
+                  f"{tot['library_ms']:.4f} ms; the wrapper's host time "
+                  f"{tot['host_ms']:.4f} ms)")
         f32 = per_forward[torch.float32]
         entries[kind] = {
             "name": kernel_name(kernel),
@@ -301,9 +332,11 @@ def phase_kernels(sp, se, stacked, pairs, cfg, batch, dev):
             "launches": None, "max_abs_err": f32["max_abs_err"],
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+            "bound_share": f32["bound_ms"] / f32["ms"],
             "library_ms": f32["library_ms"],
             "backward_ms": f32["backward_ms"],
             "backward_bound_ms": f32["backward_bound_ms"],
+            "host_ms": f32["host_ms"],
             "bf16_ms": per_forward[torch.bfloat16]["ms"],
             "bf16_bound_ms": per_forward[torch.bfloat16]["bound_ms"]}
     return entries["stacked_coo"], entries["block_ell"]
@@ -469,6 +502,14 @@ def profile(what, fn, unprofiled_ms):
           f"{1 - busy_ms / unprofiled_ms:.4f}")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {t:9.3f} ms  {100 * t / busy_ms:5.1f}%  {name[:90]}")
+    # The same device time by the operator that launched it (a kernel name
+    # such as elementwise_kernel serves many operators).
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total]
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:10]:
+        t = e.self_device_time_total / 1e3
+        print(f"  op {t:9.3f} ms  {100 * t / busy_ms:5.1f}%  {e.count:5d} "
+              f"calls  {e.key[:60]}")
 
 
 def phase_small_vs_cpu(dev):

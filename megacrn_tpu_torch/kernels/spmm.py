@@ -6,7 +6,11 @@ their column-block indices, with ``nnz_blocks`` real tiles per row-block;
 padding entries repeat a valid column index with a zero tile, exactly as
 the JAX package packs it. ``graph_backend="road_sparse"`` with a list of
 ``(BlockELL, BlockELL_t)`` pairs, one per support, aggregates through it
-(``ops.graph.cheb_aggregate_sparse``).
+(``ops.graph.cheb_aggregate_sparse``). Beside the tiles each pack carries
+the nonzero list the CUDA kernel reads (``nz_row_ptr``, ``nz_cols``,
+``nz_vals``: a CSR of the entries ``!= 0`` of the real tiles,
+``r < nnz_blocks[i]``, built once on the host by
+``row_spmm.nonzero_rows``).
 
 Two implementations of ``y = A @ x``:
 
@@ -15,9 +19,12 @@ Two implementations of ``y = A @ x``:
   least f32). The CPU tests use it and ``chip_smoke.py`` holds the kernel
   against it on the card.
 * ``spmm``: the wrapper of the hand-written Hopper kernel
-  ``kernels/csrc/spmm_ell.cu``, which stops at ``nnz_blocks`` instead of
-  running through the padding. A CPU tensor takes the plain version; a CUDA
-  tensor launches the kernel or raises.
+  ``kernels/csrc/spmm_ell.cu``, which reads only the nonzero list, so
+  neither padding tiles nor the zeros inside a tile cost it anything. A CPU
+  tensor takes the plain version; a CUDA tensor launches the kernel or
+  raises. On finite x the two agree; a non-finite value in x reaches only
+  the rows that reference it in the kernel, its whole row-block in the
+  plain version (which multiplies the zeros too).
 
 ``SpmmELLFunction`` makes ``spmm`` differentiable in x (backward: the same
 kernel on the transposed pack); ``spmm_batched`` folds a batch into the
@@ -26,13 +33,13 @@ feature axis. The node-partitioned helpers (``shard_road_packs``,
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-BLOCK = 128  # tile edge, as in megacrn_tpu/kernels/spmm.py
+from megacrn_tpu_torch.kernels import row_spmm
+from megacrn_tpu_torch.kernels.row_spmm import BLOCK
 
 
 class BlockELL(NamedTuple):
@@ -49,6 +56,8 @@ class BlockELL(NamedTuple):
       ``"kernel"`` (``spmm``: the CUDA kernel on the card, the plain version
       on the CPU) or ``"reference"`` (``spmm_reference`` on any device, for
       holding the kernel against it).
+    nz_row_ptr / nz_cols / nz_vals: the nonzero list the kernel reads, a CSR
+      over the n padded rows (see ``row_spmm``); ``to_block_ell`` fills it.
     """
 
     data: torch.Tensor
@@ -59,6 +68,9 @@ class BlockELL(NamedTuple):
     n_col: int = -1
     n_col_orig: int = -1
     impl: str = "kernel"
+    nz_row_ptr: torch.Tensor = None
+    nz_cols: torch.Tensor = None
+    nz_vals: torch.Tensor = None
 
     @property
     def col_dim(self):
@@ -69,11 +81,12 @@ class BlockELL(NamedTuple):
         return self.n_orig if self.n_col_orig == -1 else self.n_col_orig
 
     def to(self, device=None, dtype=None) -> "BlockELL":
-        """Move the arrays to ``device``; cast only the tile data to
-        ``dtype`` (indices stay int32)."""
+        """Move the arrays to ``device``; cast only the tile data and
+        ``nz_vals`` to ``dtype`` (indices stay int32)."""
         return self._replace(data=self.data.to(device=device, dtype=dtype),
                              cols=self.cols.to(device),
-                             nnz_blocks=self.nnz_blocks.to(device))
+                             nnz_blocks=self.nnz_blocks.to(device),
+                             **row_spmm.move_nonzeros(self, device, dtype))
 
 
 def to_block_ell(a: np.ndarray) -> BlockELL:
@@ -100,8 +113,12 @@ def to_block_ell(a: np.ndarray) -> BlockELL:
             cols[i, r] = c
         # pad with a repeated valid index pointing at zero data
         cols[i, len(cs):] = cs[0] if len(cs) else 0
+    real = np.arange(max_blocks)[None, :] < nnz[:, None]  # no padding tile
+    nonzeros = row_spmm.nonzero_rows(np.nonzero(real)[0], cols[real],
+                                     data[real], n, c_orig)
     return BlockELL(torch.from_numpy(data), torch.from_numpy(cols),
-                    torch.from_numpy(nnz), n, r_orig, nc, c_orig)
+                    torch.from_numpy(nnz), n, r_orig, nc, c_orig, "kernel",
+                    *nonzeros)
 
 
 def transpose_block_ell(a: np.ndarray) -> BlockELL:
@@ -135,10 +152,6 @@ def spmm_reference(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(a.n, f)[:a.n_orig].to(x.dtype)
 
 
-_KERNEL_DTYPES = {torch.float32: "spmm_ell_f32",
-                  torch.bfloat16: "spmm_ell_bf16"}
-
-
 def spmm(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a static-pattern sparse A in block-ELL form.
 
@@ -161,43 +174,12 @@ def spmm(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
         return spmm_reference(a, x)
     if x.device.type != "cuda":
         raise ValueError(f"spmm runs on CPU or CUDA tensors, got {x.device}")
-    return _launch(a, x)
+    y = row_spmm.launch("spmm_ell", a, x)
+    spmm.launches += 1
+    return y
 
 
 spmm.launches = 0
-
-
-def _launch(a: BlockELL, x: torch.Tensor) -> torch.Tensor:
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"the spmm_ell kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
-    if not (x.is_contiguous() and a.data.is_contiguous()):
-        raise ValueError("spmm_ell kernel needs contiguous x and tile data")
-    nblk, max_blocks = a.cols.shape if a.cols.dim() == 2 else (-1, -1)
-    if (nblk * BLOCK != a.n
-            or a.data.shape != (nblk, max_blocks, BLOCK, BLOCK)
-            or a.cols.dtype != torch.int32
-            or a.nnz_blocks.dtype != torch.int32
-            or a.nnz_blocks.shape != (nblk,)
-            or not (a.cols.is_contiguous()
-                    and a.nnz_blocks.is_contiguous())):
-        raise ValueError("malformed BlockELL pack for the spmm_ell kernel")
-    from megacrn_tpu_torch.kernels import _build
-
-    lib = _build.load("spmm_ell", _declare)
-    f = x.shape[1]
-    y = torch.empty((a.n_orig, f), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, _KERNEL_DTYPES[x.dtype])(
-            a.cols.data_ptr(), a.nnz_blocks.data_ptr(), a.data.data_ptr(),
-            x.data_ptr(), y.data_ptr(), nblk, max_blocks, a.n_orig,
-            a.col_dim_orig, f, stream)
-    if rc != 0:
-        raise RuntimeError(f"spmm_ell kernel launch failed: CUDA error {rc} "
-                           f"({lib.spmm_ell_error_string(rc).decode()})")
-    spmm.launches += 1
-    return y
 
 
 class SpmmELLFunction(torch.autograd.Function):
@@ -231,13 +213,3 @@ def spmm_batched(a: BlockELL, a_t: BlockELL, x: torch.Tensor) -> torch.Tensor:
         y = spmm_reference(a, flat)
     return y.view(a.n_orig, b, c).permute(1, 0, 2)
 
-
-def _declare(lib: ctypes.CDLL) -> None:
-    """ctypes signatures of ``csrc/spmm_ell.cu``'s C interface."""
-    for name in _KERNEL_DTYPES.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.spmm_ell_error_string.argtypes = [ctypes.c_int]
-    lib.spmm_ell_error_string.restype = ctypes.c_char_p

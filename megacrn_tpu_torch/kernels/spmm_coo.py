@@ -3,10 +3,11 @@
 
 A sparse matrix is a row-sorted flat list of its nonzero 128x128 tiles
 (``rows``, ``cols``, ``data``), with one zero tile for each empty row-block,
-exactly as the JAX package packs it. The port adds ``row_ptr``, a CSR over
-the sorted tiles, so that each row-block of the product is computed by its
-own CUDA blocks with no cross-block order (the TPU kernel instead relied on
-its grid running in order and flushed when the row index changed).
+exactly as the JAX package packs it, and ``row_ptr``, a CSR over the sorted
+tiles. The port adds the nonzero list the CUDA kernel reads
+(``nz_row_ptr``, ``nz_cols``, ``nz_vals``: a CSR of the entries ``!= 0``,
+built once on the host from the tiles by ``row_spmm.nonzero_rows``), so
+the kernel multiplies only the nonzeros, not whole tiles.
 
 ``stack_supports_block_coo`` packs ``diag(A_1 .. A_S)``: the model's
 Chebyshev recursion over S supports becomes one product per level on
@@ -18,8 +19,11 @@ Two implementations of ``y = A @ x``:
   one batched matmul, ``index_add_`` into row blocks). The CPU tests use it
   and ``chip_smoke.py`` holds the kernel against it on the card.
 * ``spmm_coo``: the wrapper of the hand-written Hopper kernel
-  ``kernels/csrc/spmm_coo.cu``. A CPU tensor takes the plain version; a
-  CUDA tensor launches the kernel or raises.
+  ``kernels/csrc/spmm_coo.cu``, which reads only the nonzero list. A CPU
+  tensor takes the plain version; a CUDA tensor launches the kernel or
+  raises. On finite x the two agree; a non-finite value in x reaches only
+  the rows that reference it in the kernel, its whole row-block in the
+  plain version (which multiplies the zeros too).
 
 ``SpmmCOOFunction`` makes ``spmm_coo`` differentiable in x: its backward
 is ``dx = A^T g`` through the same wrapper (and so the same kernel) on the
@@ -27,13 +31,13 @@ transposed pack, and gives the pack no gradient (it is a graph constant).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-BLOCK = 128  # tile edge, as in megacrn_tpu/kernels/spmm.py
+from megacrn_tpu_torch.kernels import row_spmm
+from megacrn_tpu_torch.kernels.row_spmm import BLOCK
 
 
 class BlockCOO(NamedTuple):
@@ -47,6 +51,8 @@ class BlockCOO(NamedTuple):
       ``[row_ptr[r], row_ptr[r+1])``.
     n / n_orig: padded and original ROW dims; n_col / n_col_orig: column dims
       (-1 = square).
+    nz_row_ptr / nz_cols / nz_vals: the nonzero list the kernel reads, a CSR
+      over the n padded rows (see ``row_spmm``); ``to_block_coo`` fills it.
     """
 
     rows: torch.Tensor
@@ -57,6 +63,9 @@ class BlockCOO(NamedTuple):
     n_orig: int
     n_col: int = -1
     n_col_orig: int = -1
+    nz_row_ptr: torch.Tensor = None
+    nz_cols: torch.Tensor = None
+    nz_vals: torch.Tensor = None
 
     @property
     def col_dim(self):
@@ -67,12 +76,13 @@ class BlockCOO(NamedTuple):
         return self.n_orig if self.n_col_orig == -1 else self.n_col_orig
 
     def to(self, device=None, dtype=None) -> "BlockCOO":
-        """Move the arrays to ``device``; cast only the tile data to
-        ``dtype`` (indices stay int32)."""
+        """Move the arrays to ``device``; cast only the tile data and
+        ``nz_vals`` to ``dtype`` (indices stay int32)."""
         return self._replace(rows=self.rows.to(device),
                              cols=self.cols.to(device),
                              data=self.data.to(device=device, dtype=dtype),
-                             row_ptr=self.row_ptr.to(device))
+                             row_ptr=self.row_ptr.to(device),
+                             **row_spmm.move_nonzeros(self, device, dtype))
 
 
 def to_block_coo(a: np.ndarray) -> BlockCOO:
@@ -97,12 +107,14 @@ def to_block_coo(a: np.ndarray) -> BlockCOO:
             cols.append(int(c))
             data.append(tiles[i, c])
     rows = np.asarray(rows, np.int32)
+    cols = np.asarray(cols, np.int32)
+    data = np.stack(data)
     row_ptr = np.zeros(nblk + 1, np.int32)
     row_ptr[1:] = np.cumsum(np.bincount(rows, minlength=nblk))
-    return BlockCOO(torch.from_numpy(rows),
-                    torch.from_numpy(np.asarray(cols, np.int32)),
-                    torch.from_numpy(np.stack(data)),
-                    torch.from_numpy(row_ptr), n, r_orig, nc, c_orig)
+    return BlockCOO(torch.from_numpy(rows), torch.from_numpy(cols),
+                    torch.from_numpy(data), torch.from_numpy(row_ptr), n,
+                    r_orig, nc, c_orig,
+                    *row_spmm.nonzero_rows(rows, cols, data, n, c_orig))
 
 
 def transpose_block_coo(a: np.ndarray) -> BlockCOO:
@@ -179,10 +191,6 @@ def spmm_coo_reference(a: BlockCOO, x: torch.Tensor) -> torch.Tensor:
     return y.view(a.n, f)[:a.n_orig].to(x.dtype)
 
 
-_KERNEL_DTYPES = {torch.float32: "spmm_coo_f32",
-                  torch.bfloat16: "spmm_coo_bf16"}
-
-
 def spmm_coo(a: BlockCOO, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for a static-pattern sparse A in sorted block-COO form.
 
@@ -206,42 +214,12 @@ def spmm_coo(a: BlockCOO, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"spmm_coo runs on CPU or CUDA tensors, got "
                          f"{x.device}")
-    return _launch(a, x)
+    y = row_spmm.launch("spmm_coo", a, x)
+    spmm_coo.launches += 1
+    return y
 
 
 spmm_coo.launches = 0
-
-
-def _launch(a: BlockCOO, x: torch.Tensor) -> torch.Tensor:
-    if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"the spmm_coo kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
-    if not (x.is_contiguous() and a.data.is_contiguous()):
-        raise ValueError("spmm_coo kernel needs contiguous x and tile data")
-    nblk = a.n // BLOCK
-    if (a.data.shape[1:] != (BLOCK, BLOCK)
-            or a.cols.shape != (a.data.shape[0],)
-            or a.cols.dtype != torch.int32
-            or a.row_ptr.dtype != torch.int32
-            or a.row_ptr.shape != (nblk + 1,)
-            or not (a.cols.is_contiguous() and a.row_ptr.is_contiguous())):
-        raise ValueError("malformed BlockCOO pack for the spmm_coo kernel")
-    from megacrn_tpu_torch.kernels import _build
-
-    lib = _build.load("spmm_coo", _declare)
-    f = x.shape[1]
-    y = torch.empty((a.n_orig, f), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, _KERNEL_DTYPES[x.dtype])(
-            a.row_ptr.data_ptr(), a.cols.data_ptr(), a.data.data_ptr(),
-            x.data_ptr(), y.data_ptr(), nblk, a.n_orig, a.col_dim_orig, f,
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"spmm_coo kernel launch failed: CUDA error {rc} "
-                           f"({lib.spmm_coo_error_string(rc).decode()})")
-    spmm_coo.launches += 1
-    return y
 
 
 class SpmmCOOFunction(torch.autograd.Function):
@@ -261,13 +239,3 @@ class SpmmCOOFunction(torch.autograd.Function):
     def backward(ctx, g):
         return spmm_coo(ctx.a_t, g.contiguous()), None, None
 
-
-def _declare(lib: ctypes.CDLL) -> None:
-    """ctypes signatures of ``csrc/spmm_coo.cu``'s C interface."""
-    for name in _KERNEL_DTYPES.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.spmm_coo_error_string.argtypes = [ctypes.c_int]
-    lib.spmm_coo_error_string.restype = ctypes.c_char_p

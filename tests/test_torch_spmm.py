@@ -198,7 +198,10 @@ def test_cuda_tensor_without_card_raises_not_falls_back():
             return torch.empty(t.shape, dtype=t.dtype, device="cuda")
 
         pack_c = pack._replace(data=cuda(pack.data), cols=cuda(pack.cols),
-                               nnz_blocks=cuda(pack.nnz_blocks))
+                               nnz_blocks=cuda(pack.nnz_blocks),
+                               nz_row_ptr=cuda(pack.nz_row_ptr),
+                               nz_cols=cuda(pack.nz_cols),
+                               nz_vals=cuda(pack.nz_vals))
         x_c = cuda(torch.from_numpy(x))
         assert x_c.device.type == "cuda"
         with pytest.raises(RuntimeError, match="nvcc|CUDA"):

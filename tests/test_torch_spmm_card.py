@@ -24,6 +24,11 @@ def _sparse(rs, r, c, density=0.04):
 
 
 def _case(rs, name):
+    if name == "long_row":  # rows of over 100 nonzeros, in A and in A^T
+        a = _sparse(rs, 300, 300)
+        a[5, rs.choice(300, 120, replace=False)] = rs.randn(120)
+        a[rs.choice(300, 110, replace=False), 7] = rs.randn(110)
+        return a, 40
     if name == "rectangular":
         return _sparse(rs, 96, 384), 7
     if name == "hub":  # the other row-blocks carry padding tiles
@@ -36,7 +41,8 @@ def _case(rs, name):
     return a, 6
 
 
-@pytest.mark.parametrize("name", ["empty_row_block", "rectangular", "hub"])
+@pytest.mark.parametrize("name", ["empty_row_block", "rectangular", "hub",
+                                  "long_row"])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 1e-2)])
 def test_block_ell_kernel_matches_reference_on_card(name, dtype, rtol):

@@ -117,7 +117,10 @@ def test_cuda_tensor_without_card_raises_not_falls_back():
 
         pack_c = pack._replace(rows=cuda(pack.rows), cols=cuda(pack.cols),
                                data=cuda(pack.data),
-                               row_ptr=cuda(pack.row_ptr))
+                               row_ptr=cuda(pack.row_ptr),
+                               nz_row_ptr=cuda(pack.nz_row_ptr),
+                               nz_cols=cuda(pack.nz_cols),
+                               nz_vals=cuda(pack.nz_vals))
         x_c = cuda(torch.from_numpy(x))
         assert x_c.device.type == "cuda"
         with pytest.raises(RuntimeError, match="nvcc|CUDA"):

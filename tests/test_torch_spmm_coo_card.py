@@ -41,3 +41,26 @@ def test_kernel_matches_reference_on_card(shape, f, empty, dtype, rtol):
                                atol=1e-5 * want.abs().max().item())
     if empty:
         assert (got[128:256] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_kernel_long_rows_match_reference_on_card(dtype, rtol):
+    """A row of 120 nonzeros (four 32-entry chunks of the kernel's row
+    loop), and on the transposed pack a row of 110; f = 40 takes the
+    16-byte path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc to build the kernel)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(4)
+    a = _sparse(rs, 300, 300)
+    a[5, rs.choice(300, 120, replace=False)] = rs.randn(120)
+    a[rs.choice(300, 110, replace=False), 7] = rs.randn(110)
+    for pack in (tspmm.to_block_coo(a), tspmm.transpose_block_coo(a)):
+        pack = pack.to("cuda", dtype)
+        x = torch.from_numpy(rs.randn(300, 40)).to("cuda", dtype)
+        got = tspmm.spmm_coo(pack, x).float()
+        want = tspmm.spmm_coo_reference(pack, x).float()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=1e-5 * want.abs().max().item())
