@@ -33,12 +33,26 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    pairs: finite losses, kernel launches per step (forward and backward)
    against counts derived from the config, gradients against the same step
    on the plain versions, ms per step and one profiled step.
+8. Fit (a), the main path at full width: ``cli.traintest.main`` in-process,
+   ``--dataset EXPYTKY --graph_backend road_sparse --road_impl pallas
+   --epochs 2 --seed 0`` over the synthetic EXPY-TKY months and a synthetic
+   N=1843 road graph written as ``--adj_path`` (units 32, memory 10x32,
+   batch 64): finite metrics for horizons 1-6, the ``spmm_coo`` launches of
+   the whole run equal to the count derived from the loaders, sec/step of
+   both epochs in metrics.jsonl, every artifact of the run dir.
+9. Fit (b), the dense path: ``--dataset SYNTH`` at the METR-LA preset,
+   ``--synth_steps 2000``, 1 epoch, ``--eval_aggregation concat``: no SpMM
+   launch at all.
+10. Fit (c), resume on the card: (b)'s run continued with ``--resume`` to 2
+    epochs against an uninterrupted 2-epoch run of the same config; the
+    largest param difference relative to max|p| must be <= 1e-5.
 
 The last three lines: a JSON line of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -570,6 +584,42 @@ def _plain(road_supports):
     return road_supports._replace(impl="reference")
 
 
+def _slot_of(rows, memory):
+    """The memory slot each (batch, node) row of ``rows`` is a copy of."""
+    return (rows[..., None, :] == memory).all(-1).int().argmax(-1)
+
+
+@contextlib.contextmanager
+def pinned_top2():
+    """MegaCRN's memory read with the top-2 slots of its first call replayed
+    in the later calls. The kernel and plain steps round differently, and
+    where two attention scores nearly tie, top-2 (not continuous there) may
+    pick another slot; pinned, both steps differentiate the same function.
+    Yields a dict whose "moved" counts the (batch, node) pairs whose own
+    choice differed from the replayed one."""
+    from megacrn_tpu_torch.models import megacrn as mm
+
+    orig = mm.query_memory
+    state = {"ind": None, "moved": 0}
+
+    def query_memory(mem, h_t):
+        value, query, pos, neg = orig(mem, h_t)
+        memory = mem["Memory"].to(h_t.dtype)
+        ind = torch.stack([_slot_of(pos, memory), _slot_of(neg, memory)])
+        if state["ind"] is None:
+            state["ind"] = ind
+        else:
+            state["moved"] += int((ind != state["ind"]).any(0).sum())
+            ind = state["ind"]
+        return value, query, memory[ind[0]], memory[ind[1]]
+
+    mm.query_memory = query_memory
+    try:
+        yield state
+    finally:
+        mm.query_memory = orig
+
+
 def phase_train(sp, se, cfg, tcfg, constants, dev):
     """Phase 7: the training slice on each graph constant. Returns
     {kind: {"launches": {kernel name: launches in 5 steps}, "fwd", "bwd",
@@ -593,27 +643,36 @@ def phase_train(sp, se, cfg, tcfg, constants, dev):
                        device=dev)
 
         # One step's forward and backward launches, and its gradients
-        # against the same step on the plain versions (same weights, batch
-        # and teacher-forcing mask: the generators share a seed).
+        # against the same step on the plain versions (same weights, batch,
+        # teacher-forcing mask and memory top-2 slots: the generators share
+        # a seed, and the slots are pinned).
         grads, losses = [], []
-        for sup in (const, _plain(const)):
-            model = copy.deepcopy(base)
-            loss_fn = make_loss_fn(model, tcfg, road_supports=sup)
-            reset_launches(*counters.values())
-            loss = loss_fn(*batches[0], bs0,
-                           torch.Generator(device=dev).manual_seed(1))
-            fwd = counter.launches
-            loss.backward()
-            bwd = counter.launches - fwd
+        with pinned_top2() as pin:
+            steps = []
+            for sup in (const, _plain(const)):
+                model = copy.deepcopy(base)
+                loss_fn = make_loss_fn(model, tcfg, road_supports=sup)
+                reset_launches(*counters.values())
+                loss = loss_fn(*batches[0], bs0,
+                               torch.Generator(device=dev).manual_seed(1))
+                fwd = counter.launches
+                loss.backward()
+                steps.append((sup, model, loss, fwd, counter.launches - fwd,
+                              read_launches(*others)))
+        print(f"train {kind}: memory top-2 slots that moved between the "
+              f"kernel and the plain forward (pinned for the gradient "
+              f"check): {pin['moved']} of "
+              f"{tcfg.batch_size * cfg.num_nodes} (batch, node) pairs")
+        for sup, model, loss, fwd, bwd, other in steps:
+            require(sum(other.values()) == 0,
+                    f"{kind}: another kernel was launched: {other}")
             if sup is const:
                 require((fwd, bwd) == (want_fwd, want_bwd),
                         f"{kind}: {fwd} forward and {bwd} backward "
                         f"{kernel_name(counter)} launches in a step, expected "
                         f"{want_fwd} and {want_bwd}")
-                require(all(c.launches == 0 for c in others),
-                        f"{kind}: another kernel was launched")
             else:
-                require(counter.launches == 0,
+                require(fwd + bwd == 0,
                         f"{kind}: the plain path launched the kernel")
             losses.append(loss.item())
             grads.append({k: p.grad for k, p in model.named_parameters()})
@@ -686,6 +745,206 @@ def phase_train(sp, se, cfg, tcfg, constants, dev):
     return results
 
 
+# The run-dir artifacts of the fit loop (train/logs.py:RunDir).
+ARTIFACTS = (".npz", "_logging.txt", "_epochlog.txt", "_scores.txt",
+             "metrics.jsonl")
+RESUME_TOL = 1e-5  # largest param difference relative to max|p|
+
+
+def run_dir_of(save_dir):
+    (name,) = os.listdir(save_dir)
+    return os.path.join(save_dir, name)
+
+
+def fit_records(what, save_dir):
+    """metrics.jsonl of the one run dir under ``save_dir``, after checking
+    that the run dir holds every artifact."""
+    run = run_dir_of(save_dir)
+    files = os.listdir(run)
+    for suffix in ARTIFACTS:
+        require(any(f.endswith(suffix) for f in files),
+                f"{what}: no *{suffix} in the run dir {run}")
+    require(os.path.isdir(os.path.join(run, "src_snapshot",
+                                       "megacrn_tpu_torch")),
+            f"{what}: no source snapshot in the run dir")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_cli(sp, se, flags):
+    """``cli.traintest.main(flags)`` with both kernels' counts set to 0
+    just before and read just after; returns (result, launches, wall s,
+    peak device GiB)."""
+    from megacrn_tpu_torch.cli import traintest
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(sp.spmm_coo, se.spmm)  # --- this path, counted ---
+    t0 = time.perf_counter()
+    result = traintest.main(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(sp.spmm_coo, se.spmm)  # --- read just after ---
+    return (result, launches, wall,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def print_epochs(what, records):
+    """One line per epoch record of metrics.jsonl."""
+    for r in records:
+        if "val" in r:
+            print(f"{what} epoch {r['epoch']}: {r['seconds']:.3f} s, train "
+                  f"{r['train_seconds']:.3f} s over {r['steady_steps']} "
+                  f"timed steps, sec_per_step {r.get('sec_per_step', 0):.5f}"
+                  f", host upload {r['upload_seconds']:.3f} s, val "
+                  f"{r['val_seconds']:.3f} s; train_loss "
+                  f"{r['train_loss']:.6f}, val loss {r['val']['loss']:.6f}")
+        elif "test_seconds" in r:
+            print(f"{what} epoch {r['epoch']} test eval: "
+                  f"{r['test_seconds']:.3f} s")
+
+
+def phase_fit_kernel(sp, se, d, step_ms):
+    """Fit (a): the main path at the EXPY-TKY width through the block-COO
+    kernel. ``step_ms``: phase 7's isolated train step on the same pack.
+    Returns its numbers and launches."""
+    from megacrn_tpu_torch.cli import traintest
+    from megacrn_tpu_torch.data.synthetic import synthetic_road_adjacency
+
+    adj_path = os.path.join(d, "expy-tky_adj01.npy")
+    np.save(adj_path, synthetic_road_adjacency(1843, avg_degree=8, seed=0))
+    save = os.path.join(d, "fit_a")
+    flags = ["--dataset", "EXPYTKY", "--graph_backend", "road_sparse",
+             "--road_impl", "pallas", "--epochs", "2", "--seed", "0",
+             "--adj_path", adj_path, "--save_dir", save]
+    args = traintest.build_parser().parse_args(flags)
+    cfg, tcfg = traintest.configs_from_args(args)
+    require((cfg.num_nodes, cfg.rnn_units, cfg.mem_num, cfg.mem_dim,
+             tcfg.batch_size) == (1843, 32, 10, 32, 64),
+            "fit (a) is not at the EXPY-TKY width")
+    # The loaders' lengths, from the same data the CLI builds.
+    data = traintest._load_expytky_data(args, cfg, tcfg)
+    n = {k: len(data[f"{k}_loader"]) for k in ("train", "val", "test")}
+    del data
+    fwd, bwd = launches_per_step(cfg, "stacked_coo", tcfg.batch_size)
+    # Every epoch: the train steps' forwards, val and (test_every_epoch)
+    # test; then the final EXPY-TKY eval over the test loader once more.
+    fwd_batches = tcfg.epochs * (n["train"] + n["val"] + n["test"]) + n["test"]
+    want = fwd * fwd_batches + bwd * tcfg.epochs * n["train"]
+
+    result, launches, wall, peak = run_cli(sp, se, flags)
+    require(launches["spmm_coo"] == want,
+            f"fit (a): {launches['spmm_coo']} spmm_coo launches, derived "
+            f"{want} = {fwd} x {fwd_batches} forward batches + {bwd} x "
+            f"{tcfg.epochs * n['train']} train steps")
+    require(launches["spmm_ell"] == 0, "fit (a) launched spmm_ell")
+    m = result["test_metrics"]
+    for s in range(1, cfg.horizon + 1):
+        for k in ("mae", "mape", "rmse"):
+            require(np.isfinite(m[f"{k}_{s}"]),
+                    f"fit (a): {k}_{s} = {m[f'{k}_{s}']}")
+    records = fit_records("fit (a)", save)
+    epochs = [r for r in records if "val" in r]
+    require(len(epochs) == tcfg.epochs
+            and all(r.get("sec_per_step", 0) > 0 for r in epochs),
+            "fit (a): sec_per_step missing from an epoch of metrics.jsonl")
+    (mem,) = [r["peak_device_memory"] for r in records
+              if "peak_device_memory" in r]
+    (final,) = [r for r in records if "final_test" in r]
+    print_epochs("fit (a)", records)
+    out = {"launches": launches, "derived_launches": want, "loaders": n,
+           "wall_s": wall, "peak_GiB": peak,
+           "peak_after_first_step_GiB":
+           mem["max_memory_allocated_bytes"] / 2**30,
+           "sec_per_step": [r["sec_per_step"] for r in epochs],
+           "epoch_s": [r["seconds"] for r in epochs],
+           "val_s": [r["val_seconds"] for r in epochs],
+           "upload_s": [r["upload_seconds"] for r in epochs],
+           "test_s": [r["test_seconds"] for r in records
+                      if "test_seconds" in r],
+           "final_eval_s": final["final_test_seconds"],
+           "isolated_step_ms": step_ms,
+           "mae": m["mae"], "rmse": m["rmse"], "mape": m["mape"]}
+    print(f"fit (a): EXPY-TKY road_sparse, N=1843, batch 64, 2 epochs of "
+          f"{n['train']} steps, val {n['val']} and test {n['test']} "
+          f"batches: {launches['spmm_coo']} spmm_coo launches (derived "
+          f"{want}); wall {wall:.2f} s; sec/step inside fit "
+          f"{[round(v, 5) for v in out['sec_per_step']]} vs the isolated "
+          f"step of phase 7 {step_ms / 1e3:.5f} s (clip on there, off "
+          f"here); final eval {out['final_eval_s']:.3f} s; peak device "
+          f"memory {peak:.3f} GiB; test mae {m['mae']:.4f} rmse "
+          f"{m['rmse']:.4f} mape {m['mape']:.4f}")
+    print("fit (a) numbers: " + json.dumps(out))
+    del result
+    return out
+
+
+DENSE_FLAGS = ["--dataset", "SYNTH", "--synth_steps", "2000", "--seed", "0",
+               "--eval_aggregation", "concat"]
+
+
+def phase_fit_dense(sp, se, d):
+    """Fit (b): the dense METR-LA path for 1 epoch; no SpMM launch."""
+    from megacrn_tpu_torch.cli import traintest
+
+    save = os.path.join(d, "fit_b")
+    cfg, _ = traintest.configs_from_args(traintest.build_parser().parse_args(
+        DENSE_FLAGS))
+    require((cfg.num_nodes, cfg.rnn_units, cfg.mem_num, cfg.mem_dim,
+             cfg.graph_backend) == (207, 64, 20, 64, "dense"),
+            "fit (b) is not the dense METR-LA preset")
+    result, launches, wall, peak = run_cli(
+        sp, se, DENSE_FLAGS + ["--epochs", "1", "--save_dir", save])
+    require(sum(launches.values()) == 0,
+            f"fit (b), the dense path, launched an SpMM kernel: {launches}")
+    m = result["test_metrics"]
+    require(all(np.isfinite(m[k]) for k in ("mae", "mape", "rmse", "mae_3",
+                                            "mae_6", "mae_12")),
+            f"fit (b): non-finite test metrics {m}")
+    records = fit_records("fit (b)", save)
+    print_epochs("fit (b)", records)
+    (epoch,) = [r for r in records if "val" in r]
+    print(f"fit (b): METR-LA dense, 1 epoch, concat eval: launches "
+          f"{launches}; wall {wall:.2f} s; sec/step "
+          f"{epoch['sec_per_step']:.5f}; peak device memory {peak:.3f} GiB;"
+          f" test mae {m['mae']:.4f} rmse {m['rmse']:.4f}")
+    del result
+    return {"launches": launches, "sec_per_step": epoch["sec_per_step"],
+            "wall_s": wall, "save": save}
+
+
+def phase_fit_resume(sp, se, d, save_b):
+    """Fit (c): (b)'s run resumed to 2 epochs against an uninterrupted
+    2-epoch run of the same config."""
+    whole, l_whole, _, _ = run_cli(
+        sp, se, DENSE_FLAGS + ["--epochs", "2", "--save_dir",
+                               os.path.join(d, "fit_c_whole")])
+    resumed, l_resumed, wall, _ = run_cli(
+        sp, se, DENSE_FLAGS + ["--epochs", "2", "--resume", "--save_dir",
+                               save_b])
+    require(resumed["epochs_run"] == whole["epochs_run"] == 2,
+            f"fit (c): epochs {resumed['epochs_run']} vs "
+            f"{whole['epochs_run']}")
+    records = fit_records("fit (c) resumed", save_b)
+    require([r["epoch"] for r in records if "val" in r] == [1, 2],
+            "fit (c): the resumed run did not continue (b)'s run dir")
+    worst, worst_key = 0.0, None
+    for k, p in whole["params"].items():
+        rel = float(np.abs(resumed["params"][k] - p).max()
+                    / max(np.abs(p).max(), 1e-30))
+        if rel >= worst:
+            worst, worst_key = rel, k
+    print(f"fit (c): resumed 1 -> 2 epochs vs uninterrupted 2 epochs: "
+          f"largest param difference relative to max|p| {worst:.3e} "
+          f"({worst_key}); best_val {resumed['best_val']:.8f} vs "
+          f"{whole['best_val']:.8f}; resumed epoch wall {wall:.2f} s")
+    require(worst <= RESUME_TOL,
+            f"fit (c): resumed params differ by {worst:.3e} of max|p| "
+            f"(> {RESUME_TOL:g}) at {worst_key}")
+    return {"launches_whole": l_whole, "launches_resumed": l_resumed,
+            "max_rel_param_diff": worst}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAIL: torch.cuda.is_available() is "
@@ -741,10 +1000,18 @@ def main():
     phase_small_vs_cpu(dev)
     train = phase_train(sp, se, cfg, tcfg, {"stacked_coo": stacked,
                                             "block_ell": pairs}, dev)
+    with tempfile.TemporaryDirectory() as d:
+        fit_a = phase_fit_kernel(sp, se, d, train["stacked_coo"]["ms"])
+        fit_b = phase_fit_dense(sp, se, d)
+        fit_c = phase_fit_resume(sp, se, d, fit_b["save"])
     # Each path's counts as read just after it (measured, zeros included).
     by_path = {"serving_3_requests": serving,
                "train_stacked_coo_5_steps": train["stacked_coo"]["launches"],
-               "train_block_ell_5_steps": train["block_ell"]["launches"]}
+               "train_block_ell_5_steps": train["block_ell"]["launches"],
+               "fit_a_expytky_road_sparse_2_epochs": fit_a["launches"],
+               "fit_b_metrla_dense_1_epoch": fit_b["launches"],
+               "fit_c_metrla_dense_2_epochs": fit_c["launches_whole"],
+               "fit_c_metrla_dense_resumed_epoch": fit_c["launches_resumed"]}
     for entry, kind in ((coo, "stacked_coo"), (ell, "block_ell")):
         res = train[kind]
         name = entry["name"]
@@ -756,6 +1023,10 @@ def main():
         entry["train_step_backward_launches"] = res["bwd"]
         entry["train_step_ms"] = res["ms"]
         entry["train_step_plain_ms"] = res["plain_ms"]
+    # The main path is now the traintest CLI (fit (a)): the COO kernel's
+    # launches are that run's.
+    coo["launches"] = fit_a["launches"]["spmm_coo"]
+    coo["fit_sec_per_step"] = fit_a["sec_per_step"]
 
     print(json.dumps({"kernels": [coo, ell]}))
     print(card)

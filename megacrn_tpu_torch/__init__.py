@@ -15,12 +15,15 @@ __version__ = "0.1.0"
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless ``device`` says
-    otherwise. ``None`` with no card raises instead of quietly running on
-    the CPU."""
-    if device is not None:
+    otherwise. ``None`` (or a CUDA device) with no card raises instead of
+    quietly running on the CPU."""
+    if device is not None and torch.device(device).type != "cuda":
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device("cuda" if device is None else device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -1,10 +1,10 @@
 """Model configuration and dataset presets (counterpart of
 ``megacrn_tpu/config.py``).
 
-The port keeps its own copy: it imports nothing of the JAX package. Only the
-fields the serving and training slices read are here: ``remat`` and
-``dense_impl``, the mesh config and the other dataset presets come with the
-slices that use them.
+The port keeps its own copy: it imports nothing of the JAX package. The
+model knobs ``remat`` and ``dense_impl``, the GTS config and the mesh config
+come with the slices that use them (``cli/traintest.py`` refuses their
+flags).
 """
 from __future__ import annotations
 
@@ -61,11 +61,8 @@ class MegaCRNConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training-protocol hyper-parameters of one train step.
+    """Training-protocol hyper-parameters.
 
-    Only the fields the optimizer, the clip and the loss read are here; the
-    fit loop's (epochs, patience, seed, validation split, the EXPY-TKY
-    harness's xavier re-init, eval aggregation) come with that loop.
     Defaults are the published METR-LA/PEMS-BAY protocol
     (``model/traintest_MegaCRN.py:162-185``); the EXPY-TKY preset overrides
     them per ``model_EXPYTKY/traintest_MegaCRN.py:152-176``.
@@ -77,29 +74,43 @@ class TrainConfig:
     lr_decay_ratio: float = 0.1
     max_grad_norm: Optional[float] = 5.0  # None = no clipping (EXPY-TKY)
     batch_size: int = 64
+    epochs: int = 200
+    patience: int = 20
     lamb: float = 0.01  # triplet (separate) loss weight
     lamb1: float = 0.01  # compact loss weight
     # 'masked_mae_inv': masked MAE on inverse-transformed scale (METR-LA/BAY,
     #   model/traintest_MegaCRN.py:118-120); 'l1_normalized': plain L1 on the
     #   normalized scale (EXPY-TKY, model_EXPYTKY/traintest_MegaCRN.py:76-94).
     pred_loss: str = "masked_mae_inv"
+    seed: Optional[int] = None  # traintestv1 uses 100; canonical is unseeded
+    val_ratio: float = 0.125  # of trainval, METR-LA protocol
+    # EXPY-TKY harness re-initializes every weight with xavier_uniform / bias
+    # uniform after construction (model_EXPYTKY/traintest_MegaCRN.py:27-35).
+    reinit_xavier_uniform: bool = False
+    # Eval aggregation: 'per_batch' reproduces README numbers
+    # (model/traintest_MegaCRN.py:72-98); 'concat' is the traintestv1 flavor.
+    eval_aggregation: str = "per_batch"
 
 
 @dataclasses.dataclass(frozen=True)
 class DatasetConfig:
-    """The dataset shape a model preset reads. The data pipeline's fields
-    (interval, loader, directory) and the other presets come with the data
-    slice."""
+    name: str = "METRLA"
+    num_nodes: int = 207
+    seq_len: int = 12
+    horizon: int = 12
+    interval_minutes: int = 5
+    # METR-LA style npz pipeline vs EXPY-TKY monthly-CSV pipeline
+    pipeline: str = "npz"  # "npz" | "expytky"
+    data_dir: str = "METRLA"
 
-    num_nodes: int
-    seq_len: int
-    horizon: int
 
-
-# Published benchmark presets (BASELINE.md) that the port runs so far.
+# Published benchmark presets (BASELINE.md).
 DATASETS = {
-    "METRLA": DatasetConfig(207, 12, 12),
-    "EXPYTKY": DatasetConfig(1843, 6, 6),
+    "METRLA": DatasetConfig("METRLA", 207, 12, 12, 5, "npz", "METRLA"),
+    "PEMSBAY": DatasetConfig("PEMSBAY", 325, 12, 12, 5, "npz", "PEMSBAY"),
+    "EXPYTKY": DatasetConfig("EXPYTKY", 1843, 6, 6, 10, "expytky", "EXPYTKY"),
+    "EXPYTKY_ALL": DatasetConfig("EXPYTKY_ALL", 2841, 6, 6, 10, "expytky",
+                                 "EXPYTKY"),
 }
 
 
@@ -109,7 +120,7 @@ def model_config_for(dataset: str, **overrides) -> MegaCRNConfig:
     base = dict(
         num_nodes=ds.num_nodes, seq_len=ds.seq_len, horizon=ds.horizon,
     )
-    if dataset == "EXPYTKY":
+    if dataset.startswith("EXPYTKY"):
         # model_EXPYTKY/traintest_MegaCRN.py:158-164
         base.update(rnn_units=32, mem_num=10, mem_dim=32)
     base.update(overrides)
@@ -117,18 +128,20 @@ def model_config_for(dataset: str, **overrides) -> MegaCRNConfig:
 
 
 def train_config_for(dataset: str, **overrides) -> TrainConfig:
-    """Training protocol per dataset preset (METRLA, EXPYTKY)."""
+    """Training protocol per dataset preset."""
     if dataset not in DATASETS:
         raise KeyError(f"no training preset for {dataset!r}; the port has "
                        f"{sorted(DATASETS)}")
     base: dict = {}
-    if dataset == "EXPYTKY":
+    if dataset.startswith("EXPYTKY"):
         # model_EXPYTKY/traintest_MegaCRN.py:152-176; the EXPY-TKY harness
         # builds Adam WITHOUT the eps override (:74 - torch default 1e-8)
         # and reshuffles every epoch (torch DataLoader(shuffle=True), :71).
         base.update(
             lr=0.001, epsilon=1e-8, lr_milestones=(200,), max_grad_norm=None,
-            lamb=0.01, lamb1=0.0, pred_loss="l1_normalized",
+            patience=10, lamb=0.01, lamb1=0.0, epochs=200,
+            pred_loss="l1_normalized", val_ratio=0.25,
+            reinit_xavier_uniform=True,
         )
     base.update(overrides)
     return TrainConfig(**base)

@@ -212,7 +212,7 @@ class MegaCRN(nn.Module):
             else:
                 raise NotImplementedError(
                     f"{type(road_supports).__name__} road supports are not "
-                    "ported yet (ROADMAP Queue 1 item 5: node-ELL packs)")
+                    "ported yet (ROADMAP Queue 1 item 1: node-ELL packs)")
             # Only the tile data narrows (a no-op once the caller has cast
             # it); the kernels accumulate in f32. The transposed packs are
             # cast only when autograd records, since only a backward reads
@@ -220,7 +220,7 @@ class MegaCRN(nn.Module):
             return (road_supports_to(road_supports, dtype=compute_dtype,
                                      transpose=torch.is_grad_enabled()),
                     aggregate)
-        items = {"sparse_meta": 6, "dense_ring": 10}
+        items = {"sparse_meta": 7, "dense_ring": 11}
         if backend not in items:
             raise ValueError(f"unknown graph_backend {backend!r}")
         raise NotImplementedError(

@@ -4,6 +4,9 @@
 * ``xavier_normal`` on 2-D weights: N(0, gain^2 * 2/(fan_in+fan_out)).
 * torch ``nn.Linear`` default for the projection head: U(-1/sqrt(fan_in),
   1/sqrt(fan_in)) for weight and bias.
+* ``xavier_uniform`` for the EXPY-TKY harness's second init pass
+  (``model_EXPYTKY/traintest_MegaCRN.py:27-35``):
+  U(-b, b) with b = gain * sqrt(6/(fan_in+fan_out)).
 
 Shapes follow the JAX package, ``(fan_in, fan_out)``. The draws happen on
 the CPU generator, so a seed gives the same weights whatever device the
@@ -21,6 +24,13 @@ def xavier_normal(shape, generator: torch.Generator, dtype=torch.float32,
     fan_in, fan_out = shape[0], shape[1]
     std = gain * math.sqrt(2.0 / (fan_in + fan_out))
     return std * torch.randn(shape, generator=generator, dtype=dtype)
+
+
+def xavier_uniform(shape, generator: torch.Generator, dtype=torch.float32,
+                   gain: float = 1.0) -> torch.Tensor:
+    fan_in, fan_out = shape[0], shape[1]
+    bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
+    return _uniform(shape, -bound, bound, generator, dtype)
 
 
 def torch_linear_weight(shape, generator: torch.Generator,

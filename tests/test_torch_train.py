@@ -336,12 +336,18 @@ def test_multistep_lr_boundaries_match_jax_schedule():
         lr_sched.step()
 
 
-@pytest.mark.parametrize("dataset", ["METRLA", "EXPYTKY"])
+@pytest.mark.parametrize("dataset", ["METRLA", "EXPYTKY", "PEMSBAY",
+                                     "EXPYTKY_ALL"])
 def test_train_config_presets_match_jax(dataset):
-    """The port's TrainConfig holds the fields one train step reads; each
-    equals the JAX preset's."""
+    """Every preset's TrainConfig, DatasetConfig and model config equal the
+    JAX package's (the model config on the fields the port has)."""
     got = dataclasses.asdict(tconfig.train_config_for(dataset))
     want = dataclasses.asdict(jconfig.train_config_for(dataset))
+    assert got == want
+    assert (dataclasses.asdict(tconfig.DATASETS[dataset])
+            == dataclasses.asdict(jconfig.DATASETS[dataset]))
+    got = dataclasses.asdict(tconfig.model_config_for(dataset))
+    want = dataclasses.asdict(jconfig.model_config_for(dataset))
     assert got == {k: want[k] for k in got}
     m = tconfig.MegaCRNConfig()
     assert (m.cl_decay_steps, m.use_curriculum_learning) == (2000, True)
