@@ -47,13 +47,37 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
     epochs against an uninterrupted 2-epoch run of the same config; the
     largest param difference relative to max|p| must be <= 1e-5.
 
-The last three lines: a JSON line of the kernels, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The graph backends with no hand-written kernel (plain PyTorch, as the JAX
+package writes them in XLA), each path at the EXPY-TKY width, batch 64, f32:
+train-step ms, device kernels, busy ms and idle share of one profiled step,
+peak device memory, one served chunk's ms, and both kernels' counts (0):
+
+11. Node-ELL: the bucketed pack (as built) and the flat one
+    (``max_buckets=1``), loss and gradients held against the block-COO
+    step's; ``_ell_apply`` unrolled and einsum at f = 2112 and 4224 against
+    cuSPARSE on the same matrix; ``--road_impl auto`` against the two
+    measured steps.
+12. Node-ELL at N=16384, batch 8: the host's build seconds and the peak.
+13. ``sparse_meta``: node (as built) held against block; block with and
+    without remat; ``sddmm_node``, ``node_row_softmax``, ``spmm_node`` and
+    ``spmm_blocks`` forward and backward against ``sampled_addmm``,
+    ``torch.sparse.softmax`` and cuSPARSE.
+14. Dense ``stacked`` against ``recursive`` at METR-LA and EXPY-TKY.
+15. ``--remat`` on the block-COO path against the plain step; its
+    ``spmm_coo`` launches counted with the backward's recomputation.
+16. The traintest CLI for 1 epoch with ``--road_impl ell``,
+    ``--graph_backend sparse_meta --sparse_meta_impl node`` and
+    ``--dense_impl stacked``.
+
+The last lines: a JSON line of the new paths, one of their ops, one of the
+kernels, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -85,7 +109,7 @@ def require(cond, msg):
         raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def cuda_ms(fn, iters=10, warmup=2):
+def cuda_ms(fn, iters=10, warmup=2, syncs=False):
     """(device ms, host ms) per call over ``iters`` calls, after warm-up.
 
     A spin kernel enqueued first holds the device while the host enqueues
@@ -94,7 +118,9 @@ def cuda_ms(fn, iters=10, warmup=2):
     takes less time on the card than its Python wrapper takes on the host).
     The hold doubles until the host is done before the device starts the
     first call. The host clock around the enqueue gives the host's ms per
-    call."""
+    call. ``syncs``: ``fn`` may wait for the card itself (a library call
+    that reads a size back), so no hold can outlast the enqueue; then the
+    events time the calls as they run, host waits included."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -112,7 +138,18 @@ def cuda_ms(fn, iters=10, warmup=2):
         end.synchronize()
         if held:
             return start.elapsed_time(end) / iters, host_ms
-    require(False, "the spin kernel never outlasted the host's enqueue")
+    require(syncs, "the spin kernel never outlasted the host's enqueue")
+    print("  (timed as it runs: the call waits for the card, or its host "
+          "enqueue outlasts the hold)")
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end) / iters,
+            1e3 * (time.perf_counter() - t0) / iters)
 
 
 def card_line():
@@ -145,11 +182,14 @@ def slice_widths(cfg, batch):
 def launches_per_step(cfg, kind, batch):
     """(forward, backward) kernel launches of one train step: the sums of
     ``slice_widths``, once for the stacked COO pack, which takes all
-    supports at once, and once per support for block-ELL."""
+    supports at once, and once per support for block-ELL. With
+    ``cfg.remat`` the backward recomputes every cell step first, so it
+    launches each forward launch again besides its own."""
     packs = 1 if kind == "stacked_coo" else cfg.num_supports
     widths = slice_widths(cfg, batch).values()
-    return (packs * sum(n for _, n, _ in widths),
-            packs * sum(n for _, _, n in widths))
+    fwd = packs * sum(n for _, n, _ in widths)
+    bwd = packs * sum(n for _, _, n in widths)
+    return fwd, bwd + (fwd if cfg.remat else 0)
 
 
 def reset_launches(*kernels):
@@ -457,15 +497,7 @@ def phase_slice(sp, se, stacked, cfg, batch):
         print(f"slice request of {b} windows: {chunks} chunk(s), {n} "
               f"spmm_coo launches, max abs err vs plain {err:.3e}")
 
-    def chunk_ms(p, reps=5):
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            p.predict(reqs[1])  # ends in a device-to-host copy
-            times.append(1e3 * (time.perf_counter() - t0))
-        return float(np.median(times))
-
-    ms, plain_ms = chunk_ms(pred), chunk_ms(plain)
+    ms, plain_ms = chunk_ms(pred, reqs[1]), chunk_ms(plain, reqs[1])
     print(f"slice Predictor: {ms:.3f} ms per 64-window chunk "
           f"({64e3 / ms:.1f} windows/s); plain SpMM path {plain_ms:.3f} ms "
           f"(host clock, median of 5)")
@@ -508,7 +540,7 @@ def profile(what, fn, unprofiled_ms):
     if not count:
         print(f"profile of {what}: the profiler saw no device time "
               f"(not measured)")
-        return
+        return {"device_kernels": None, "busy_ms": None, "idle_share": None}
     print(f"profile of {what}: {count} device kernels, busy "
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms profiled wall, idle share "
           f"{1 - busy_ms / wall_ms:.4f}; of the unprofiled "
@@ -524,6 +556,8 @@ def profile(what, fn, unprofiled_ms):
         t = e.self_device_time_total / 1e3
         print(f"  op {t:9.3f} ms  {100 * t / busy_ms:5.1f}%  {e.count:5d} "
               f"calls  {e.key[:60]}")
+    return {"device_kernels": count, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / unprofiled_ms}
 
 
 def phase_small_vs_cpu(dev):
@@ -633,7 +667,7 @@ def phase_train(sp, se, cfg, tcfg, constants, dev):
     batches = train_batches(cfg, tcfg.batch_size, dev)
     counters = {"stacked_coo": sp.spmm_coo, "block_ell": se.spmm}
     # Threshold ~0.5: the decoder feeds the label at about half its steps.
-    bs0 = float(cfg.cl_decay_steps * np.log(cfg.cl_decay_steps))
+    bs0 = half_threshold(cfg)
     results = {}
     for kind, const in constants.items():
         counter = counters[kind]
@@ -706,22 +740,11 @@ def phase_train(sp, se, cfg, tcfg, constants, dev):
                 torch.Generator(device=dev).manual_seed(seed),
                 road_supports=sup)
 
-        def run(step, n, first):
-            times, losses = [], []
-            for i in range(n):
-                t0 = time.perf_counter()
-                loss = step(*batches[i % len(batches)], bs0 + first + i)
-                losses.append(loss.item())  # ends the step on the host
-                times.append(1e3 * (time.perf_counter() - t0))
-            require(np.isfinite(losses).all(),
-                    f"{kind}: non-finite loss {losses}")
-            return float(np.median(times)), losses
-
         torch.cuda.reset_peak_memory_stats()
         step = steps(const, 2)
-        run(step, 2, 0)  # warm-up
+        run_steps(step, batches, 2, bs0)  # warm-up
         reset_launches(*counters.values())  # --- this path, counted ---
-        ms, kernel_losses = run(step, 5, 2)
+        ms, kernel_losses = run_steps(step, batches, 5, bs0 + 2)
         launches = read_launches(*counters.values())  # --- read just after ---
         n = launches[kernel_name(counter)]
         require(n == 5 * (want_fwd + want_bwd),
@@ -731,8 +754,8 @@ def phase_train(sp, se, cfg, tcfg, constants, dev):
                 f"{kind}: another kernel was launched: {launches}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         plain_step = steps(_plain(const), 2)
-        run(plain_step, 2, 0)
-        plain_ms, _ = run(plain_step, 5, 2)
+        run_steps(plain_step, batches, 2, bs0)
+        plain_ms, _ = run_steps(plain_step, batches, 5, bs0 + 2)
         print(f"train {kind}: losses {[round(v, 6) for v in kernel_losses]};"
               f" {ms:.3f} ms per train step, plain SpMM {plain_ms:.3f} ms "
               f"(host clock to loss.item(), median of 5); launches in 5 "
@@ -945,6 +968,712 @@ def phase_fit_resume(sp, se, d, save_b):
             "max_rel_param_diff": worst}
 
 
+# --- The graph backends slice: node-ELL, sparse_meta, dense stacked, remat.
+# None of these paths runs a hand-written kernel (the JAX package writes
+# them in XLA, the port in plain PyTorch): each path's spmm_coo and spmm_ell
+# counts are read around it and must be 0, but for remat on the COO path.
+
+
+def half_threshold(cfg):
+    """batches_seen at which the curriculum threshold is ~0.5."""
+    return float(cfg.cl_decay_steps * np.log(cfg.cl_decay_steps))
+
+
+def with_cfg(base, cfg):
+    """A copy of ``base``'s weights under another config of the same preset
+    (every graph backend has the same parameters)."""
+    model = copy.deepcopy(base)
+    model.cfg = cfg
+    return model
+
+
+def run_steps(step, batches, n, first):
+    """(median host ms to loss.item(), losses) of n train steps."""
+    times, losses = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        loss = step(*batches[i % len(batches)], first + i)
+        losses.append(loss.item())  # ends the step on the host
+        times.append(1e3 * (time.perf_counter() - t0))
+    require(np.isfinite(losses).all(), f"non-finite loss {losses}")
+    return float(np.median(times)), losses
+
+
+def hold_steps(what, runs, tcfg, batch, dev):
+    """One train step (forward with scheduled sampling, composite loss,
+    backward) of each ``(label, model, graph constant)`` of ``runs`` on the
+    same batch, coins and memory top-2 slots; each run's loss and gradients
+    against the first run's, per array within GRAD_TOL. Returns the worst
+    |err| / max|g|."""
+    from megacrn_tpu_torch.train.steps import make_loss_fn
+
+    out = []
+    with pinned_top2() as pin:
+        for label, model, const in runs:
+            loss = make_loss_fn(model, tcfg, road_supports=const)(
+                *batch, half_threshold(model.cfg),
+                torch.Generator(device=dev).manual_seed(1))
+            loss.backward()
+            out.append((label, loss.item(),
+                        {k: p.grad for k, p in model.named_parameters()}))
+    (ref_label, ref_loss, ref), worst = out[0], 0.0
+    rtol, atol_rel = GRAD_TOL
+    for label, loss, grads in out[1:]:
+        require(abs(loss - ref_loss) <= 1e-5 * abs(ref_loss),
+                f"{what}: loss {loss} ({label}) vs {ref_loss} ({ref_label})")
+        for k, w in ref.items():
+            g = grads[k]
+            require((g is None) == (w is None), f"{what}: grad of {k}")
+            if w is None:
+                continue
+            err = (g - w).abs()
+            require(bool(torch.isfinite(g).all().item()) and bool(
+                (err <= atol_rel * w.abs().max() + rtol * w.abs())
+                .all().item()),
+                f"{what}: grad of {k} ({label}) disagrees with {ref_label}, "
+                f"max abs err {err.max().item():.3e}")
+            worst = max(worst, (err / w.abs().max()).max().item())
+    print(f"{what}: one train step of each of {[r[0] for r in runs]} on the "
+          f"same weights, batch, coins and memory top-2 slots ({pin['moved']}"
+          f" moved); losses {[round(r[1], 6) for r in out]}; grads vs "
+          f"{ref_label}: max |err|/max|g| {worst:.3e} (rtol {rtol:g}, atol "
+          f"{atol_rel:g}*max|g| per array)")
+    return worst
+
+
+def chunk_ms(pred, x, reps=5):
+    """Median host ms of one served 64-window chunk (ends in the copy to
+    the host), after a warm-up call."""
+    pred.predict(x)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pred.predict(x)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def measure_path(name, model, tcfg, const, batches, dev, sp, se, steps=5,
+                 serve=True):
+    """A new path at full width: 2 warm-up and ``steps`` timed train steps
+    of ``model`` on the graph constant ``const`` (counted: both kernels'
+    counts set to 0 just before the timed steps and read just after), the
+    peak device memory from the first step on, one profiled step (device
+    kernels, busy ms, idle share) and, with ``serve``, one served 64-window
+    chunk through the Predictor. Returns the numbers."""
+    from megacrn_tpu_torch.serve import Predictor
+    from megacrn_tpu_torch.train.optim import make_optimizer
+    from megacrn_tpu_torch.train.steps import make_train_step
+
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(model, tcfg, make_optimizer(model.parameters(),
+                                                       tcfg),
+                           torch.Generator(device=dev).manual_seed(2),
+                           road_supports=const)
+    bs = half_threshold(cfg)
+    run_steps(step, batches, 2, bs)  # warm-up
+    reset_launches(sp.spmm_coo, se.spmm)  # --- this path, counted ---
+    ms, losses = run_steps(step, batches, steps, bs + 2)
+    launches = read_launches(sp.spmm_coo, se.spmm)  # --- read just after ---
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"step_ms": ms, "peak_GiB": peak, "launches": launches,
+           "losses": losses}
+    out.update(profile(f"one {name} train step",
+                       lambda: step(*batches[0], bs).item(), ms))
+    del step
+    if serve:
+        x = requests(np.random.RandomState(5), batches[0][0].shape[0], cfg)
+        out["chunk_ms"] = chunk_ms(
+            Predictor(model, cfg, 45.0, 15.0, 64, road_supports=const,
+                      device=dev), x)
+    print(f"path {name}: {ms:.3f} ms per train step (host clock to "
+          f"loss.item(), median of {steps}); device kernels per step "
+          f"{out['device_kernels']}, busy {out['busy_ms']} ms, idle share "
+          f"{out['idle_share']}; peak device memory {peak:.3f} GiB; served "
+          f"64-window chunk {out.get('chunk_ms', 'not served')} ms; "
+          f"launches in {steps} steps {launches}")
+    return out
+
+
+def device_kernels(fn, calls=3):
+    """Device kernels one call of ``fn`` launches: the kernel launches the
+    profiler records on the host (the CUDA runtime's launch calls), or the
+    device kernels it records if more, over ``calls`` calls after a
+    warm-up, per call. (The device records alone came back short for a few
+    calls of a kernel or two.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_device = sum(e.device_type == DeviceType.CUDA for e in events)
+    launched = sum(e.device_type == DeviceType.CPU
+                   and "LaunchKernel" in e.name for e in events)
+    return round(max(on_device, launched) / calls)
+
+
+@contextlib.contextmanager
+def counted(module, name):
+    """Count the calls of ``module.name`` (a plain function the module
+    calls through its own namespace); yields the count in a dict."""
+    orig = getattr(module, name)
+    calls = {"n": 0}
+
+    def wrapper(*a, **kw):
+        calls["n"] += 1
+        return orig(*a, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def calls_per_step(targets, model, tcfg, const, batch, dev):
+    """{label: calls in one train step's forward + backward} of each
+    ``(label, module, name)`` of ``targets``."""
+    from megacrn_tpu_torch.train.steps import make_loss_fn
+
+    with contextlib.ExitStack() as stack:
+        counts = {label: stack.enter_context(counted(mod, name))
+                  for label, mod, name in targets}
+        loss = make_loss_fn(model, tcfg, road_supports=const)(
+            *batch, half_threshold(model.cfg),
+            torch.Generator(device=dev).manual_seed(1))
+        loss.backward()
+    model.zero_grad(set_to_none=True)
+    return {label: c["n"] for label, c in counts.items()}
+
+
+def spmm_bytes_bound(nnz, x_rows, rows, f, idx_bytes=8):
+    """(bound ms, bound_by) of y = A @ x from the nonzeros: a 4-byte value
+    and an index each, the rows of x some nonzero references and y once,
+    against 2*f flops a nonzero (f32)."""
+    nbytes = nnz * (4 + idx_bytes) + (x_rows + rows) * f * 4
+    return roof(nbytes, 2.0 * nnz * f)
+
+
+def roof(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def csr_from_rows(rows, cols, vals, shape, dev):
+    """A torch sparse CSR tensor on ``dev`` from COO triplets (numpy)."""
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    ptr = np.zeros(shape[0] + 1, np.int64)
+    ptr[1:] = np.cumsum(np.bincount(rows, minlength=shape[0]))
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(ptr), torch.from_numpy(cols.astype(np.int64)),
+        torch.as_tensor(np.asarray(vals)[order], dtype=torch.float32),
+        size=shape).to(dev)
+
+
+def check_close(what, got, want, tol=TOL[torch.float32]):
+    """got against want (tensors or tuples of them) within the f32
+    tolerance; returns the max abs error."""
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        atol = tol[1] * w.abs().max().item()
+        require(g.shape == w.shape and bool(torch.isfinite(g).all().item())
+                and bool((err <= atol + tol[0] * w.abs()).all().item()),
+                f"{what}: max abs err {err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def held_iters(kernels_per_call, queue=400):
+    """Calls ``cuda_ms`` may enqueue behind its spin kernel: the host
+    blocks once about a thousand launches wait on the card, so an op of
+    many small kernels is timed over fewer calls (at least one)."""
+    return max(1, min(10, queue // max(1, kernels_per_call)))
+
+
+def op_row(name, fn, args, dev, library=None, bound=None, backward=False,
+           note=""):
+    """One row of the plain-PyTorch op table: device ms of ``fn(*args)``
+    (CUDA events behind a spin kernel; no autograd), and with ``backward``
+    of forward + backward through autograd (random cotangent); device
+    kernels per call; the library call's ms; the bound."""
+    row = {"op": name, "note": note}
+    row["device_kernels"] = device_kernels(lambda: fn(*args))
+    with torch.no_grad():
+        row["ms"] = cuda_ms(lambda: fn(*args), syncs=True,
+                            iters=held_iters(row["device_kernels"]))[0]
+    if backward:
+        leaves = [a.detach().requires_grad_() if a.is_floating_point()
+                  else a for a in args]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        cots = [torch.randn_like(o) for o in outs]
+
+        def fwd_bwd():
+            o = fn(*leaves)
+            torch.autograd.backward(list(o) if isinstance(o, tuple) else [o],
+                                    cots)
+
+        kernels = device_kernels(fwd_bwd)
+        row["fwd_bwd_ms"] = cuda_ms(fwd_bwd, iters=held_iters(kernels),
+                                    syncs=True)[0]
+        row["backward_ms"] = row["fwd_bwd_ms"] - row["ms"]
+        row["backward_device_kernels"] = kernels - row["device_kernels"]
+    if library is not None:
+        row["library_ms"] = cuda_ms(library, syncs=True)[0]
+    if bound is not None:
+        row["bound_ms"], row["bound_by"] = bound
+    print(f"op {name}: " + json.dumps(row))
+    return row
+
+
+def phase_node_ell(sp, se, cfg, tcfg, sups, stacked, dev, coo_step_ms):
+    """Phase 11: node-ELL road supports at the EXPY-TKY width, the bucketed
+    pack (as built) and the flat pack (max_buckets=1), held against the
+    block-COO step; their paths; ``_ell_apply`` in both forms; and the
+    ``--road_impl auto`` policy against the measured step times."""
+    from megacrn_tpu_torch.cli import traintest
+    from megacrn_tpu_torch.kernels import spmm_ell_node as sen
+    from megacrn_tpu_torch.models.megacrn import MegaCRN
+
+    t0 = time.perf_counter()
+    packs = {"bucketed": sen.build_stacked_node_ell(sups)}
+    build_s = time.perf_counter() - t0
+    packs["flat"] = sen.build_stacked_node_ell(sups, max_buckets=1)
+    require(isinstance(packs["flat"], sen.StackedNodeELL),
+            "max_buckets=1 did not give the flat pack")
+    b = packs["bucketed"]
+    layout = ([tuple(a.shape) for a in b.fwd_nbr]
+              if isinstance(b, sen.BucketedStackedNodeELL) else "flat")
+    nnz = sen.pack_nnz(b)
+    print(f"node-ELL packs: built in {build_s:.3f} s (host); as built "
+          f"{type(b).__name__} with forward buckets {layout}; flat "
+          f"{tuple(packs['flat'].pack.nbr.shape)}; {nnz} edges "
+          f"(flat pack nnz {sen.pack_nnz(packs['flat'])})")
+    require(nnz == sen.pack_nnz(packs["flat"]), "the two packs differ")
+
+    base = MegaCRN(cfg, generator=torch.Generator().manual_seed(0),
+                   device=dev)
+    batches = train_batches(cfg, tcfg.batch_size, dev)
+    worst = hold_steps(
+        "node-ELL vs block-COO",
+        [("block_coo", with_cfg(base, cfg), stacked)]
+        + [(f"node_ell_{k}", with_cfg(base, cfg), p)
+           for k, p in packs.items()], tcfg, batches[0], dev)
+    paths = {}
+    for k, p in packs.items():
+        paths[f"node_ell_{k}"] = measure_path(
+            f"node_ell_{k}", with_cfg(base, cfg), tcfg, p, batches, dev, sp,
+            se)
+        # Applications of the pack per train step (forward + backward).
+        fn = "_bucketed_apply" if k == "bucketed" and layout != "flat" else (
+            "_ell_apply")
+        paths[f"node_ell_{k}"]["applications_per_step"] = calls_per_step(
+            [("apply", sen, fn)], with_cfg(base, cfg), tcfg, p, batches[0],
+            dev)["apply"]
+    for k, res in paths.items():
+        require(sum(res["launches"].values()) == 0,
+                f"{k} launched an SpMM kernel: {res['launches']}")
+
+    # _ell_apply in both forms, against cuSPARSE on the same matrix.
+    n_stack = cfg.num_supports * cfg.num_nodes
+    flat = packs["flat"].pack
+    keep = flat.w.numpy() != 0
+    rows = np.nonzero(keep)[0]
+    csr = csr_from_rows(rows, flat.nbr.numpy()[keep], flat.w.numpy()[keep],
+                        (n_stack, n_stack), dev)
+    x_rows = int(np.unique(flat.nbr.numpy()[keep]).size)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ops = []
+    for k, p in packs.items():
+        p = p.to(dev)
+        if isinstance(p, sen.BucketedStackedNodeELL):
+            def unrolled(x, p=p):
+                return sen._bucketed_apply(p.fwd_nbr, p.fwd_w, p.fwd_inv, x)
+
+            def einsum(x, p=p):
+                return torch.cat([sen._ell_einsum(n, w, x) for n, w in
+                                  zip(p.fwd_nbr, p.fwd_w)])[p.fwd_inv]
+        else:
+            def unrolled(x, p=p):
+                return sen._ell_apply(p.pack.nbr, p.pack.w, x)
+
+            def einsum(x, p=p):
+                return sen._ell_einsum(p.pack.nbr, p.pack.w, x)
+
+        for f in (2112, 4224):
+            x = torch.randn((n_stack, f), generator=gen, device=dev)
+            want = csr @ x
+            for form, fn in (("unrolled", unrolled), ("einsum", einsum)):
+                err = check_close(f"_ell_apply {k} {form} f={f} vs cuSPARSE",
+                                  fn(x), want)
+                row = op_row(f"_ell_apply[{k},{form}]", fn, (x,), dev,
+                             library=lambda x=x: csr @ x,
+                             bound=spmm_bytes_bound(nnz, x_rows, n_stack, f),
+                             note=f"f={f}")
+                row.update(f=f, pack=k, form=form, max_abs_err=err,
+                           applications_per_step=paths[f"node_ell_{k}"][
+                               "applications_per_step"])
+                ops.append(row)
+    del csr
+
+    # --road_impl auto, as the CLI builds it, against the measured steps.
+    args = traintest.build_parser().parse_args(
+        ["--dataset", "SYNTH", "--num_nodes", str(cfg.num_nodes),
+         "--graph_backend", "road_sparse", "--road_impl", "auto"])
+    auto = traintest.build_road_supports(args, traintest.configs_from_args(
+        args)[0])
+    ell_ms = min(paths["node_ell_bucketed"]["step_ms"],
+                 paths["node_ell_flat"]["step_ms"])
+    picked, other = (("block_coo", coo_step_ms), ("node_ell", ell_ms)) if (
+        isinstance(auto, sp.StackedRoadPack)) else (
+        ("node_ell", ell_ms), ("block_coo", coo_step_ms))
+    print(f"--road_impl auto picks {picked[0]}: train step {picked[1]:.3f} ms"
+          f" against {other[0]} {other[1]:.3f} ms (this run)")
+    require(picked[1] <= 1.1 * other[1],
+            f"--road_impl auto picks {picked[0]}, slower than {other[0]}")
+    return {"paths": paths, "ops": ops, "build_s": build_s,
+            "hold_worst": worst, "auto": picked[0],
+            "auto_ms": {"block_coo": coo_step_ms, "node_ell": ell_ms}}
+
+
+def phase_node_ell_large(sp, se, dev, n=16384, batch=8):
+    """Phase 12: one node-ELL train path at the round-5 scale shape (N=16384,
+    batch 8, EXPY-TKY widths): the host seconds to build the dense N x N
+    supports and the pack, the step time and the peak device memory. If the
+    dense supports take over 60 s on the host, N=8192 instead."""
+    from megacrn_tpu_torch.config import model_config_for, train_config_for
+    from megacrn_tpu_torch.data.synthetic import synthetic_road_adjacency
+    from megacrn_tpu_torch.kernels import spmm_ell_node as sen
+    from megacrn_tpu_torch.models.megacrn import MegaCRN
+    from megacrn_tpu_torch.ops.graph import dual_random_walk_supports
+
+    t0 = time.perf_counter()
+    sups = list(dual_random_walk_supports(
+        synthetic_road_adjacency(n, avg_degree=8, seed=0)))
+    dense_s = time.perf_counter() - t0
+    if dense_s > 60:
+        print(f"node-ELL N={n}: the dense supports took {dense_s:.1f} s on "
+              f"the host (> 60 s): N=8192 instead")
+        n = 8192
+        t0 = time.perf_counter()
+        sups = list(dual_random_walk_supports(
+            synthetic_road_adjacency(n, avg_degree=8, seed=0)))
+        dense_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pack = sen.build_stacked_node_ell(sups)
+    pack_s = time.perf_counter() - t0
+    del sups
+    cfg = model_config_for("EXPYTKY", num_nodes=n, graph_backend="road_sparse")
+    tcfg = train_config_for("EXPYTKY", batch_size=batch, max_grad_norm=5.0)
+    model = MegaCRN(cfg, generator=torch.Generator().manual_seed(0),
+                    device=dev)
+    res = measure_path(f"node_ell_N{n}_batch{batch}", model, tcfg, pack,
+                       train_batches(cfg, batch, dev), dev, sp, se, steps=3,
+                       serve=False)
+    require(sum(res["launches"].values()) == 0,
+            f"node-ELL N={n} launched an SpMM kernel")
+    res.update(n=n, batch=batch, dense_supports_s=dense_s, pack_build_s=pack_s,
+               pack=type(pack).__name__)
+    print(f"node-ELL N={n} batch {batch}: host {dense_s:.2f} s for the dense "
+          f"supports + {pack_s:.2f} s for the pack; {res['step_ms']:.3f} ms "
+          f"per train step; peak device memory {res['peak_GiB']:.3f} GiB")
+    return res
+
+
+def node_dense(p, values, n, bucketed):
+    """The (n, n) dense matrix of per-slot values on a node pattern (0 at
+    the pads, which all point at column 0)."""
+    out = torch.zeros((n, n), device=values[0].device)
+    if bucketed:
+        for nbr_b, rows_b, v_b in zip(p.nbr, p.rows, values):
+            out.index_put_((rows_b[:, None].expand_as(nbr_b), nbr_b), v_b,
+                           accumulate=True)
+    else:
+        rows = torch.arange(n, device=out.device)[:, None].expand_as(p.nbr)
+        out.index_put_((rows, p.nbr), values, accumulate=True)
+    return out
+
+
+def phase_sparse_meta(sp, se, cfg, tcfg, adj, dev):
+    """Phase 13: the learned sparse_meta graph at the EXPY-TKY width on the
+    CLI's pattern (the symmetrised road graph with self loops), node
+    granular (as built) and 128x128-tile granular: node held against block,
+    their paths (block with and without remat), and the ops timed."""
+    from megacrn_tpu_torch.kernels import sparse_graph as sg
+    from megacrn_tpu_torch.kernels import sparse_graph_node as sgn
+    from megacrn_tpu_torch.models.megacrn import MegaCRN
+
+    pat = ((adj != 0) | (adj.T != 0)).astype(np.float32)
+    np.fill_diagonal(pat, 1.0)
+    t0 = time.perf_counter()
+    node = sgn.build_node_pattern(pat)
+    node_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    block = sg.build_block_pattern(pat)
+    block_s = time.perf_counter() - t0
+    nnz = int(pat.sum())
+    print(f"sparse_meta patterns: {nnz} edges; node {type(node).__name__} "
+          f"({node_s:.3f} s host); block cols {tuple(block.cols.shape)} "
+          f"({block_s:.3f} s host, mask "
+          f"{block.mask.numel() * 4 / 2**20:.1f} MiB f32)")
+    cfg = dataclasses.replace(cfg, graph_backend="sparse_meta")
+    base = MegaCRN(cfg, generator=torch.Generator().manual_seed(0),
+                   device=dev)
+    batches = train_batches(cfg, tcfg.batch_size, dev)
+    worst = hold_steps("sparse_meta node vs block",
+                       [("block", with_cfg(base, cfg), block),
+                        ("node", with_cfg(base, cfg), node)], tcfg,
+                       batches[0], dev)
+    paths = {}
+    remat = dataclasses.replace(cfg, remat=True)
+    for name, c, const in (("sparse_meta_node", cfg, node),
+                           ("sparse_meta_block", cfg, block),
+                           ("sparse_meta_block_remat", remat, block)):
+        paths[name] = measure_path(name, with_cfg(base, c), tcfg, const,
+                                   batches, dev, sp, se)
+        require(sum(paths[name]["launches"].values()) == 0,
+                f"{name} launched an SpMM kernel")
+    print("sparse_meta peak device memory: block "
+          f"{paths['sparse_meta_block']['peak_GiB']:.3f} GiB without remat, "
+          f"{paths['sparse_meta_block_remat']['peak_GiB']:.3f} GiB with; "
+          f"node {paths['sparse_meta_node']['peak_GiB']:.3f} GiB without")
+
+    # The ops, at the model's shapes: e = We @ Memory (N, mem_dim); the
+    # learned weights; x at the encoder gate's width.
+    n, k_dim, f = cfg.num_nodes, cfg.mem_dim, tcfg.batch_size * (
+        cfg.input_dim + cfg.rnn_units)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    e1, e2 = (torch.randn((n, k_dim), generator=gen, device=dev)
+              for _ in range(2))
+    x = torch.randn((n, f), generator=gen, device=dev)
+    e2t = e2.T.contiguous()
+    p = node.to(dev, transpose=True)
+    bucketed = isinstance(p, sgn.BucketedNodeELLPattern)
+    rows, cols = np.nonzero(pat)
+    pattern_csr = csr_from_rows(rows, cols, np.ones(nnz), (n, n), dev)
+    with torch.no_grad():
+        scores = sgn.sddmm_node_bucketed(e1, e2, p) if bucketed else (
+            sgn.sddmm_node(e1, e2, p.nbr, p.mask))
+        w = sgn.node_row_softmax_bucketed(
+            tuple(torch.relu(s) for s in scores), p) if bucketed else (
+            sgn.node_row_softmax(torch.relu(scores), p.mask))
+    # The learned weights as a CSR of the same matrix, and its transpose.
+    dense_w = node_dense(p, w, n, bucketed)
+    w_csr, w_csr_t = dense_w.to_sparse_csr(), dense_w.T.contiguous(
+        ).to_sparse_csr()
+    scores_coo = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([rows, cols])).to(dev),
+        torch.randn(nnz, generator=gen, device=dev), (n, n)).coalesce()
+    x_rows = int(np.unique(cols).size)
+    ops = []
+    tag = "bucketed" if bucketed else "flat"
+    if bucketed:
+        def sddmm(a, b_):
+            return sgn.sddmm_node_bucketed(a, b_, p)
+
+        def softmax(*s):
+            return sgn.node_row_softmax_bucketed(s, p)
+
+        def spmm(x_, *w_):
+            return sgn.spmm_node_bucketed(p.nbr, p.mask, p.rows, p.inv,
+                                          p.t_nbr, p.t_slot, p.t_mask,
+                                          p.t_inv, w_, x_)
+        score_args, w_args = tuple(scores), tuple(w)
+    else:
+        def sddmm(a, b_):
+            return sgn.sddmm_node(a, b_, p.nbr, p.mask)
+
+        def softmax(s):
+            return sgn.node_row_softmax(s, p.mask)
+
+        def spmm(x_, w_):
+            return sgn.spmm_node(p.nbr, p.mask, p.t_nbr, p.t_slot, p.t_mask,
+                                 w_, x_)
+        score_args, w_args = (scores,), (w,)
+    with torch.no_grad():
+        check_close("spmm_node vs cuSPARSE", spmm(x, *w_args), w_csr @ x)
+        sampled = torch.sparse.sampled_addmm(pattern_csr, e1, e2t, beta=0.0)
+        check_close("sddmm_node vs sampled_addmm",
+                    node_dense(p, sddmm(e1, e2), n, bucketed),
+                    sampled.to_dense())
+    sddmm_bound = roof(2 * n * k_dim * 4 + nnz * (8 + 4),
+                       2.0 * nnz * k_dim)
+    ops.append(op_row(f"sddmm_node[{tag}]", sddmm, (e1, e2), dev,
+                      library=lambda: torch.sparse.sampled_addmm(
+                          pattern_csr, e1, e2t, beta=0.0),
+                      bound=sddmm_bound, backward=True,
+                      note=f"K={k_dim}, nnz={nnz}"))
+    ops.append(op_row(f"node_row_softmax[{tag}]", softmax, score_args, dev,
+                      library=lambda: torch.sparse.softmax(scores_coo, 1),
+                      bound=roof(nnz * 12, 5.0 * nnz), backward=True,
+                      note=f"nnz={nnz}"))
+    spmm_bound = spmm_bytes_bound(nnz, x_rows, n, f)
+    bwd_bound = roof(nnz * (4 + 3 * 8 + 4) + 3 * n * f * 4, 4.0 * nnz * f)
+    row = op_row(f"spmm_node[{tag}]", spmm, (x,) + w_args, dev,
+                 library=lambda: w_csr @ x, bound=spmm_bound, backward=True,
+                 note=f"f={f}")
+    dy = torch.randn((n, f), generator=gen, device=dev)
+    x_t = x.T.contiguous()
+    row["library_backward_ms"] = cuda_ms(
+        lambda: (w_csr_t @ dy, torch.sparse.sampled_addmm(
+            pattern_csr, dy, x_t, beta=0.0)), syncs=True)[0]
+    row["backward_bound_ms"] = bwd_bound[0]
+    ops.append(row)
+
+    bp = block.to(dev)
+    tiles = sg.sparse_meta_graph(torch.randn((cfg.mem_num, k_dim),
+                                             generator=gen, device=dev),
+                                 base.memory["We1"].detach(),
+                                 base.memory["We2"].detach(), bp)[0]
+    dense_t = torch.zeros((bp.n, bp.n), device=dev)
+    for i, cols_i in enumerate(bp.cols.tolist()):
+        for r, c in enumerate(cols_i):
+            dense_t[i * 128:(i + 1) * 128, c * 128:(c + 1) * 128] += (
+                tiles[i, r])
+    t_csr = dense_t[:n, :n].contiguous().to_sparse_csr()
+    check_close("spmm_blocks vs cuSPARSE", sg.spmm_blocks(tiles, bp, x),
+                t_csr @ x)
+    row = op_row("spmm_blocks", lambda t, x_: sg.spmm_blocks(t, bp, x_),
+                 (tiles.detach(), x), dev, library=lambda: t_csr @ x,
+                 bound=spmm_bytes_bound(nnz, x_rows, n, f), backward=True,
+                 note=f"f={f}, {tuple(bp.cols.shape)} tiles")
+    ops.append(row)
+    del dense_w, dense_t, w_csr, w_csr_t, t_csr
+    # Forward calls per train step of each op, as the model makes them
+    # (each has one backward call: the learned weights need gradients).
+    suffix = "_bucketed" if bucketed else ""
+    per_step = calls_per_step(
+        [(f"sddmm_node[{tag}]", sgn, "sddmm_node" + suffix),
+         (f"node_row_softmax[{tag}]", sgn, "node_row_softmax" + suffix),
+         (f"spmm_node[{tag}]", sgn, "spmm_node" + suffix)],
+        with_cfg(base, cfg), tcfg, node, batches[0], dev)
+    per_step["spmm_blocks"] = calls_per_step(
+        [("spmm_blocks", sg, "spmm_blocks")], with_cfg(base, cfg), tcfg,
+        block, batches[0], dev)["spmm_blocks"]
+    print(f"sparse_meta calls per train step: {per_step}")
+    return {"paths": paths, "ops": ops, "calls_per_step": per_step,
+            "hold_worst": worst, "node_pattern": type(node).__name__,
+            "nnz": nnz}
+
+
+def phase_dense_stacked(sp, se, dev):
+    """Phase 14: dense_impl="stacked" against "recursive" at METR-LA (N=207)
+    and at the EXPY-TKY width on the dense backend (N=1843), batch 64:
+    equal gradients within GRAD_TOL, and both paths measured."""
+    from megacrn_tpu_torch.config import model_config_for, train_config_for
+    from megacrn_tpu_torch.models.megacrn import MegaCRN
+
+    out = {}
+    for ds in ("METRLA", "EXPYTKY"):
+        cfg = model_config_for(ds)
+        tcfg = train_config_for(ds, max_grad_norm=5.0)
+        stacked = dataclasses.replace(cfg, dense_impl="stacked")
+        base = MegaCRN(cfg, generator=torch.Generator().manual_seed(0),
+                       device=dev)
+        batches = train_batches(cfg, tcfg.batch_size, dev)
+        worst = hold_steps(f"dense stacked vs recursive, {ds}",
+                           [("recursive", with_cfg(base, cfg), None),
+                            ("stacked", with_cfg(base, stacked), None)],
+                           tcfg, batches[0], dev)
+        for name, c in (("recursive", cfg), ("stacked", stacked)):
+            res = measure_path(f"dense_{name}_{ds}", with_cfg(base, c), tcfg,
+                               None, batches, dev, sp, se)
+            require(sum(res["launches"].values()) == 0,
+                    f"dense {name} {ds} launched an SpMM kernel")
+            res["hold_worst"] = worst
+            out[f"dense_{name}_{ds}"] = res
+        del base, batches
+    return out
+
+
+def phase_remat(sp, se, cfg, tcfg, stacked, dev):
+    """Phase 15: --remat on the block-COO path (EXPY-TKY width, batch 64):
+    loss and gradients equal to the plain step's, the peak memory and step
+    time of both, and the COO launches of the remat step counted with the
+    backward's recomputation (2F + B a step)."""
+    from megacrn_tpu_torch.models.megacrn import MegaCRN
+
+    remat = dataclasses.replace(cfg, remat=True)
+    base = MegaCRN(cfg, generator=torch.Generator().manual_seed(0),
+                   device=dev)
+    batches = train_batches(cfg, tcfg.batch_size, dev)
+    worst = hold_steps("remat vs plain, block-COO",
+                       [("plain", with_cfg(base, cfg), stacked),
+                        ("remat", with_cfg(base, remat), stacked)], tcfg,
+                       batches[0], dev)
+    out = {}
+    for name, c in (("coo_plain", cfg), ("coo_remat", remat)):
+        res = measure_path(name, with_cfg(base, c), tcfg, stacked, batches,
+                           dev, sp, se)
+        fwd, bwd = launches_per_step(c, "stacked_coo", tcfg.batch_size)
+        require(res["launches"] == {"spmm_coo": 5 * (fwd + bwd),
+                                    "spmm_ell": 0},
+                f"{name}: launches {res['launches']} in 5 steps, expected "
+                f"5 x ({fwd} + {bwd}) spmm_coo")
+        res.update(forward_launches=fwd, backward_launches=bwd,
+                   hold_worst=worst)
+        out[name] = res
+    print(f"remat on block-COO: {out['coo_remat']['step_ms']:.3f} ms per step"
+          f" and {out['coo_remat']['peak_GiB']:.3f} GiB peak, against "
+          f"{out['coo_plain']['step_ms']:.3f} ms and "
+          f"{out['coo_plain']['peak_GiB']:.3f} GiB without; spmm_coo "
+          f"launches a step {out['coo_remat']['forward_launches']} + "
+          f"{out['coo_remat']['backward_launches']} (recomputation "
+          f"included) against {out['coo_plain']['forward_launches']} + "
+          f"{out['coo_plain']['backward_launches']}")
+    return out
+
+
+def phase_cli_new_flags(sp, se, d, adj_path):
+    """Phase 16: the traintest CLI for 1 epoch at the EXPY-TKY width with
+    each new flag: --road_impl ell, --graph_backend sparse_meta
+    --sparse_meta_impl node, and --dense_impl stacked. No SpMM kernel runs
+    on these paths."""
+    out = {}
+    for name, flags in (
+            ("cli_road_impl_ell", ["--graph_backend", "road_sparse",
+                                   "--road_impl", "ell"]),
+            ("cli_sparse_meta_node", ["--graph_backend", "sparse_meta",
+                                      "--sparse_meta_impl", "node"]),
+            ("cli_dense_impl_stacked", ["--dense_impl", "stacked"])):
+        save = os.path.join(d, name)
+        result, launches, wall, peak = run_cli(
+            sp, se, ["--dataset", "EXPYTKY", "--epochs", "1", "--seed", "0",
+                     "--adj_path", adj_path, "--save_dir", save] + flags)
+        require(sum(launches.values()) == 0,
+                f"{name} launched an SpMM kernel: {launches}")
+        m = result["test_metrics"]
+        require(all(np.isfinite(m[f"{k}_{s}"]) for k in ("mae", "rmse")
+                    for s in range(1, 7)), f"{name}: test metrics {m}")
+        records = fit_records(name, save)
+        print_epochs(name, records)
+        (epoch,) = [r for r in records if "val" in r]
+        out[name] = {"launches": launches, "wall_s": wall, "peak_GiB": peak,
+                     "sec_per_step": epoch["sec_per_step"],
+                     "mae": m["mae"]}
+        print(f"{name}: 1 epoch, wall {wall:.2f} s, sec/step "
+              f"{epoch['sec_per_step']:.5f}, peak {peak:.3f} GiB, test mae "
+              f"{m['mae']:.4f}, launches {launches}")
+        del result
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAIL: torch.cuda.is_available() is "
@@ -982,8 +1711,8 @@ def main():
     # batch 64) with the clip at 5, the METR-LA protocol's norm: the
     # EXPY-TKY preset clips nothing, and each step here runs the clip.
     tcfg = train_config_for("EXPYTKY", max_grad_norm=5.0)
-    sups = list(dual_random_walk_supports(
-        synthetic_road_adjacency(cfg.num_nodes, avg_degree=8, seed=0)))
+    adj = synthetic_road_adjacency(cfg.num_nodes, avg_degree=8, seed=0)
+    sups = list(dual_random_walk_supports(adj))
     stacked = sp.build_stacked_road_pack(sups)
     pairs = se.build_road_ell_pairs(sups)
     print(f"slice packs: block-COO {stacked.pack.data.shape[0]} tiles over "
@@ -1004,6 +1733,15 @@ def main():
         fit_a = phase_fit_kernel(sp, se, d, train["stacked_coo"]["ms"])
         fit_b = phase_fit_dense(sp, se, d)
         fit_c = phase_fit_resume(sp, se, d, fit_b["save"])
+        # The graph backends slice.
+        node_ell = phase_node_ell(sp, se, cfg, tcfg, sups, stacked, dev,
+                                  train["stacked_coo"]["ms"])
+        large = phase_node_ell_large(sp, se, dev)
+        smeta = phase_sparse_meta(sp, se, cfg, tcfg, adj, dev)
+        dense = phase_dense_stacked(sp, se, dev)
+        remat = phase_remat(sp, se, cfg, tcfg, stacked, dev)
+        cli = phase_cli_new_flags(sp, se, d,
+                                  os.path.join(d, "expy-tky_adj01.npy"))
     # Each path's counts as read just after it (measured, zeros included).
     by_path = {"serving_3_requests": serving,
                "train_stacked_coo_5_steps": train["stacked_coo"]["launches"],
@@ -1012,6 +1750,13 @@ def main():
                "fit_b_metrla_dense_1_epoch": fit_b["launches"],
                "fit_c_metrla_dense_2_epochs": fit_c["launches_whole"],
                "fit_c_metrla_dense_resumed_epoch": fit_c["launches_resumed"]}
+    paths = dict(node_ell["paths"], **smeta["paths"], **dense, **remat)
+    paths[f"node_ell_N{large['n']}_batch{large['batch']}"] = large
+    for name, res in paths.items():
+        steps = 3 if name.startswith("node_ell_N") else 5
+        by_path[f"train_{name}_{steps}_steps"] = res["launches"]
+    for name, res in cli.items():
+        by_path[f"{name}_1_epoch"] = res["launches"]
     for entry, kind in ((coo, "stacked_coo"), (ell, "block_ell")):
         res = train[kind]
         name = entry["name"]
@@ -1028,6 +1773,27 @@ def main():
     coo["launches"] = fit_a["launches"]["spmm_coo"]
     coo["fit_sec_per_step"] = fit_a["sec_per_step"]
 
+    # The new paths and their ops (plain PyTorch, no hand-written kernel):
+    # per-step and per-op numbers for PERF.md.
+    keys = ("step_ms", "busy_ms", "idle_share", "device_kernels", "peak_GiB",
+            "chunk_ms", "hold_worst", "applications_per_step")
+    print(json.dumps({"paths": {
+        name: {k: res[k] for k in keys if k in res}
+        for name, res in paths.items()}, "cli": cli,
+        "auto": {"picks": node_ell["auto"], "step_ms": node_ell["auto_ms"]},
+        "node_ell_large": {k: large[k] for k in (
+            "n", "batch", "dense_supports_s", "pack_build_s", "pack")},
+        "node_ell_pack_build_s": node_ell["build_s"]}))
+    calls = smeta["calls_per_step"]
+    for row in smeta["ops"]:
+        if row["op"] in calls:
+            row["calls_per_step"] = calls[row["op"]]
+            row["launches_per_step"] = calls[row["op"]] * (
+                row["device_kernels"] + row.get("backward_device_kernels", 0))
+    for row in node_ell["ops"]:
+        row["launches_per_step"] = (row["applications_per_step"]
+                                    * row["device_kernels"])
+    print(json.dumps({"xla_paths": node_ell["ops"] + smeta["ops"]}))
     print(json.dumps({"kernels": [coo, ell]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ Usage (mirrors ``python traintest_MegaCRN.py --dataset=METRLA --gpu=0``,
 
 Every reference knob (model/traintest_MegaCRN.py:158-187) is exposed; dataset
 presets hard-set num_nodes exactly as the reference does (:190-195). The
-flags of the JAX CLI whose code is not ported yet are accepted and refused
-with the ROADMAP item that ports them; none falls back to something else.
+flags of the JAX CLI whose code is not ported yet (``dense_ring``, the
+mesh, Orbax) are accepted and refused with the ROADMAP item that ports
+them; none falls back to something else.
 """
 from __future__ import annotations
 
@@ -56,9 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["dense", "road_sparse", "sparse_meta",
                             "dense_ring"],
                    help="graph aggregation backend: dense (learned "
-                        "meta-graph) or road_sparse (the static road graph "
-                        "through a hand-written SpMM kernel); sparse_meta "
-                        "and dense_ring are not ported yet")
+                        "meta-graph), road_sparse (the static road graph "
+                        "through a sparse product) or sparse_meta (the "
+                        "learned meta-graph restricted to the road graph's "
+                        "edges); dense_ring is not ported yet")
     p.add_argument("--adj_path", type=str, default=None,
                    help=".npy 0/1 road adjacency (expy-tky_adj01.npy "
                         "semantics, model_EXPYTKY/traintest_MegaCRN.py:"
@@ -68,18 +70,24 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "xla", "pallas", "ell"],
                    help="road_sparse SpMM: 'pallas' (the block-COO CUDA "
                         "kernel), 'xla' (its plain PyTorch version, for "
-                        "comparison), 'auto' = pallas; 'ell' (node-level "
-                        "ELL) is not ported yet")
+                        "comparison), 'ell' (node-level ELL gathers, plain "
+                        "PyTorch), 'auto' = pallas (the faster of pallas "
+                        "and ell on the H100)")
     p.add_argument("--sparse_meta_impl", type=str, default="node",
                    choices=["node", "block"],
-                   help="sparse_meta granularity (not ported yet)")
+                   help="sparse_meta granularity: 'node' (row-padded ELL "
+                        "slots, O(nnz) pattern bytes) or 'block' (128x128 "
+                        "tiles; keeps tens of GiB of activations at the "
+                        "EXPY-TKY width unless --remat)")
     p.add_argument("--dense_impl", type=str, default="recursive",
                    choices=["stacked", "recursive"],
                    help="dense aggregation: 'recursive' (per-support "
-                        "recursion); 'stacked' is not ported yet")
+                        "recursion) or 'stacked' (the Chebyshev polynomial "
+                        "matrices built once per forward, one tall product "
+                        "per aggregation)")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize cell steps in the backward pass "
-                        "(not ported yet)")
+                        "(less device memory, more time)")
     # train
     p.add_argument("--lamb", type=float, default=None)
     p.add_argument("--lamb1", type=float, default=None)
@@ -127,21 +135,12 @@ def unported_flags(args):
     """[(flag, ROADMAP Queue 1 item)] of the JAX CLI's options whose code
     the port does not have yet."""
     out = []
-    if args.graph_backend == "sparse_meta":
-        out.append(("--graph_backend sparse_meta", "7 (sparse_meta)"))
     if args.graph_backend == "dense_ring":
         out.append(("--graph_backend dense_ring",
                     "11 (parallelism: mesh and dense_ring)"))
     if args.mesh_data * args.mesh_node > 1:
         out.append(("--mesh_data/--mesh_node > 1",
                     "11 (parallelism: mesh and dense_ring)"))
-    if args.road_impl == "ell":
-        out.append(("--road_impl ell", "1 (node-ELL and the auto -> ell "
-                                       "policy)"))
-    if args.remat:
-        out.append(("--remat", "2 (rematerialisation)"))
-    if args.dense_impl == "stacked":
-        out.append(("--dense_impl stacked", "3 (dense_impl stacked)"))
     if args.ckpt_backend == "orbax":
         out.append(("--ckpt_backend orbax", "4 (Orbax checkpoints)"))
     return out
@@ -159,7 +158,8 @@ def configs_from_args(args):
         cheb_k=args.cheb_k, num_layers=args.num_layers,
         cl_decay_steps=args.cl_decay_steps,
         use_curriculum_learning=args.use_curriculum_learning,
-        compute_dtype=args.compute_dtype, graph_backend=args.graph_backend)
+        compute_dtype=args.compute_dtype, graph_backend=args.graph_backend,
+        dense_impl=args.dense_impl, remat=args.remat)
     model_cfg = model_config_for(ds, **model_over)
 
     train_over = {"eval_aggregation": args.eval_aggregation}
@@ -212,16 +212,17 @@ def _load_expytky_data(args, model_cfg, train_cfg):
 
 
 def build_road_supports(args, model_cfg):
-    """The road_sparse graph constant: ``--adj_path`` (expy-tky_adj01.npy
-    semantics) or, on SYNTH, a synthetic stand-in -> dual-random-walk
-    supports -> one block-diagonal ``StackedRoadPack``: ``--road_impl
-    pallas`` (and ``auto``) runs the block-COO CUDA kernel, ``xla`` its
-    plain PyTorch version. None for the dense backend."""
-    if model_cfg.graph_backend != "road_sparse":
+    """The graph constant of the sparse backends: ``--adj_path``
+    (expy-tky_adj01.npy semantics) or, on SYNTH, a synthetic stand-in.
+    ``road_sparse``: dual-random-walk supports -> one block-diagonal
+    ``StackedRoadPack`` (``--road_impl pallas`` and ``auto``: the block-COO
+    CUDA kernel; ``xla``: its plain PyTorch version) or a stacked node-ELL
+    pack (``ell``). ``sparse_meta``: the symmetrised edge pattern with self
+    loops -> ``build_node_pattern`` (``--sparse_meta_impl node``) or
+    ``build_block_pattern`` (``block``). None for the dense backend."""
+    if model_cfg.graph_backend not in ("road_sparse", "sparse_meta"):
         return None
     from megacrn_tpu_torch.data import expytky
-    from megacrn_tpu_torch.kernels.spmm_coo import build_stacked_road_pack
-    from megacrn_tpu_torch.ops.graph import dual_random_walk_supports
 
     if args.adj_path:
         adj = expytky.load_adjacency(args.adj_path, _sub_idx(args))
@@ -238,12 +239,38 @@ def build_road_supports(args, model_cfg):
 
         adj = synthetic_road_adjacency(model_cfg.num_nodes, avg_degree=8,
                                        seed=0)
-    # 'auto' is 'pallas' until node-ELL is ported and measured on the card
-    # (the JAX CLI's auto -> ell is a TPU-measured policy; ROADMAP Queue 3).
-    impl = {"auto": "kernel", "pallas": "kernel",
-            "xla": "reference"}[args.road_impl]
-    return build_stacked_road_pack(list(dual_random_walk_supports(adj)),
-                                   impl=impl)
+    if model_cfg.graph_backend == "road_sparse":
+        from megacrn_tpu_torch.ops.graph import dual_random_walk_supports
+
+        supports = list(dual_random_walk_supports(adj))
+        if args.road_impl == "ell":
+            from megacrn_tpu_torch.kernels.spmm_ell_node import \
+                build_stacked_node_ell
+
+            return build_stacked_node_ell(supports)
+        from megacrn_tpu_torch.kernels.spmm_coo import build_stacked_road_pack
+
+        # 'auto' takes the block-COO kernel: on the H100 an EXPY-TKY train
+        # step (N=1843, batch 64) ran 63.0-69.6 ms through it against
+        # 222.6-301.1 ms on the bucketed node-ELL pack and 259.5-262.2 ms on
+        # the flat one (chip_smoke.py phases 7 and 11; NVIDIA H100 80GB
+        # HBM3, 700.00 W; PERF.md). The JAX CLI's auto -> ell is a policy
+        # measured on the TPU.
+        impl = {"auto": "kernel", "pallas": "kernel",
+                "xla": "reference"}[args.road_impl]
+        return build_stacked_road_pack(supports, impl=impl)
+    # sparse_meta: the learned meta-graph restricted to the symmetrised
+    # edge pattern (+ self loops, so every row has at least one edge).
+    pat = ((adj != 0) | (adj.T != 0)).astype(np.float32)
+    np.fill_diagonal(pat, 1.0)
+    if args.sparse_meta_impl == "node":
+        from megacrn_tpu_torch.kernels.sparse_graph_node import \
+            build_node_pattern
+
+        return build_node_pattern(pat)
+    from megacrn_tpu_torch.kernels.sparse_graph import build_block_pattern
+
+    return build_block_pattern(pat)
 
 
 def _predict_fn(model, road_supports):

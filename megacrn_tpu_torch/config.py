@@ -2,9 +2,8 @@
 ``megacrn_tpu/config.py``).
 
 The port keeps its own copy: it imports nothing of the JAX package. The
-model knobs ``remat`` and ``dense_impl``, the GTS config and the mesh config
-come with the slices that use them (``cli/traintest.py`` refuses their
-flags).
+GTS config and the mesh config come with the slices that use them
+(``cli/traintest.py`` refuses their flags).
 """
 from __future__ import annotations
 
@@ -36,11 +35,18 @@ class MegaCRNConfig:
     # Matmul-input dtype: "float32" | "bfloat16" | "float64" (CPU parity
     # control). The memory read and the output stay at >= float32.
     compute_dtype: str = "float32"
-    # Graph aggregation backend. The port runs "dense" (learned meta-graph)
-    # and "road_sparse" with a StackedRoadPack (block-COO kernel) or
-    # block-ELL pairs (block-ELL kernel); the others raise
-    # NotImplementedError until their ROADMAP slice lands.
+    # Graph aggregation backend: "dense" (learned meta-graph), "road_sparse"
+    # (static road supports: a StackedRoadPack through the block-COO kernel,
+    # block-ELL pairs through the block-ELL kernel, or a node-ELL pack) or
+    # "sparse_meta" (the learned meta-graph on a static edge pattern, node
+    # or tile granular). "dense_ring" raises NotImplementedError until the
+    # mesh slice lands.
     graph_backend: str = "dense"
+    # Dense aggregation: "recursive" (the per-support feature recursion) or
+    # "stacked" (the Chebyshev polynomial matrices built once per forward,
+    # every aggregation ONE tall product; ops/graph.py). Same math.
+    dense_impl: str = "recursive"
+    remat: bool = False  # recompute each cell step in the backward pass
 
     def __post_init__(self):
         # The reference Chebyshev stack is [I, A, ...] so cheb_k==1 would make

@@ -6,12 +6,18 @@ The module's parameter names are the reference's (``memory.Memory``,
 reference ``.pt`` state_dict loads with ``load_state_dict`` as it is;
 ``interop.params_from_flat`` converts the JAX package's flat naming.
 
-The port runs two graph backends: ``dense`` (learned meta-graph, dense
-Chebyshev stack) and ``road_sparse``, whose road-graph constant is either a
-``StackedRoadPack`` (block-COO SpMM kernel) or a list of per-support
-``(BlockELL, BlockELL_t)`` pairs (block-ELL SpMM kernel). The forward
-serves and trains: with ``training=True`` the decoder does scheduled
-sampling. The encoder and decoder loop over time in Python.
+The port runs every single-device graph backend of the JAX model:
+``dense`` (learned meta-graph, dense Chebyshev stack, ``dense_impl``
+``recursive`` or ``stacked``); ``road_sparse``, whose road-graph constant is
+a ``StackedRoadPack`` (block-COO SpMM kernel), a list of per-support
+``(BlockELL, BlockELL_t)`` pairs (block-ELL SpMM kernel) or a stacked
+node-ELL pack (flat or degree-bucketed); and ``sparse_meta``, the learned
+meta-graph on a static edge pattern (``NodeELLPattern``,
+``BucketedNodeELLPattern`` or the 128x128-tile ``BlockPattern``). The
+forward serves and trains: with ``training=True`` the decoder does scheduled
+sampling, and ``cfg.remat`` recomputes each cell step in the backward. The
+encoder and decoder loop over time in Python. ``dense_ring`` (the mesh) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -20,19 +26,29 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from megacrn_tpu_torch import resolve_device
 from megacrn_tpu_torch.config import MegaCRNConfig
+from megacrn_tpu_torch.kernels.sparse_graph import (
+    BlockPattern, cheb_aggregate_learned_sparse, sparse_meta_graph)
+from megacrn_tpu_torch.kernels.sparse_graph_node import (
+    BucketedNodeELLPattern, NodeELLPattern, cheb_aggregate_learned_node,
+    sparse_meta_graph_node)
 from megacrn_tpu_torch.kernels.spmm import BlockELL
 from megacrn_tpu_torch.kernels.spmm_coo import StackedRoadPack
+from megacrn_tpu_torch.kernels.spmm_ell_node import (BucketedStackedNodeELL,
+                                                     StackedNodeELL,
+                                                     cheb_aggregate_node_ell)
 from megacrn_tpu_torch.nn.init import torch_linear_bias, torch_linear_weight
 from megacrn_tpu_torch.nn.memory import memory_init, query_memory
 from megacrn_tpu_torch.nn.seq import (decoder_init, encoder_init, init_hidden,
                                       stack_step)
 from megacrn_tpu_torch.ops.graph import (cheb_aggregate,
+                                         cheb_aggregate_prestacked,
                                          cheb_aggregate_sparse,
                                          cheb_aggregate_sparse_stacked,
-                                         meta_graph)
+                                         cheb_support_stack, meta_graph)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
@@ -54,13 +70,22 @@ def sampling_mask(threshold: float, horizon: int,
     return coins < threshold
 
 
+# The graph constants with their own ``.to(device, dtype, transpose=...)``.
+_PACKS = (StackedRoadPack, StackedNodeELL, BucketedStackedNodeELL)
+_NODE_PATTERNS = (NodeELLPattern, BucketedNodeELLPattern)
+_MOVABLE = _PACKS + _NODE_PATTERNS + (BlockPattern,)
+
+
 def road_supports_to(road_supports, device=None, dtype=None,
                      transpose: bool = False):
-    """Move and cast the tile data of a ``road_sparse`` graph constant (a
-    ``StackedRoadPack`` or a list of ``(BlockELL, BlockELL_t)`` pairs). The
-    transposed packs are read only by the backward, so they move only when
+    """Move and cast a graph constant: a ``StackedRoadPack``, a list of
+    ``(BlockELL, BlockELL_t)`` pairs, a stacked node-ELL pack (flat or
+    bucketed) or a ``sparse_meta`` pattern (node, bucketed or block). Index
+    arrays move and are never cast; tile data, weights and masks are cast
+    to ``dtype``. The transposed packs (and a node pattern's transposed
+    side) are read only by the backward, so they move only when
     ``transpose`` is set."""
-    if isinstance(road_supports, StackedRoadPack):
+    if isinstance(road_supports, _MOVABLE):
         return road_supports.to(device, dtype, transpose=transpose)
     return [(a.to(device, dtype), a_t.to(device, dtype) if transpose else a_t)
             for a, a_t in road_supports]
@@ -127,10 +152,10 @@ class MegaCRN(nn.Module):
         back its own output, deterministically.
 
         x: (B, T, N, input_dim); y_cov: (B, horizon, N, ycov_dim); labels:
-        (B, horizon, N, output_dim). ``road_supports``: the ``road_sparse``
-        graph constant, a ``StackedRoadPack`` or a list of ``(BlockELL,
-        BlockELL_t)`` pairs, on the model's device (the transposed packs
-        too, for a backward).
+        (B, horizon, N, output_dim). ``road_supports``: the graph constant
+        of a ``road_sparse`` or ``sparse_meta`` model (see the module
+        docstring) on the model's device, the transposed side too for a
+        backward (``road_supports_to`` moves it).
         """
         cfg = self.cfg
         batch, n_nodes = x.shape[0], x.shape[2]
@@ -151,13 +176,28 @@ class MegaCRN(nn.Module):
 
         x = x.to(compute_dtype)
         y_cov = y_cov.to(compute_dtype)
+        # Remat recomputes each cell step in the backward instead of keeping
+        # its aggregation stacks; without autograd there is no backward.
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(step, *args):
+            if not remat:
+                return step(*args)
+            # The decoder's coins are drawn before the loop (sampling_mask),
+            # so a recomputed step draws no random number: no RNG state to
+            # save and restore.
+            return checkpoint(step, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+
+        def enc_step(x_t, *states):
+            return stack_step(self.encoder, x_t, states, supports,
+                              cfg.cheb_k, aggregate)[1]
 
         # --- encoder over T (model/MegaCRN.py:174-176) ---
         states = init_hidden(cfg.num_layers, batch, n_nodes, cfg.rnn_units,
                              compute_dtype, x.device)
         for t in range(x.shape[1]):
-            _, states = stack_step(self.encoder, x[:, t], states, supports,
-                                   cfg.cheb_k, aggregate)
+            states = run(enc_step, x[:, t], *states)
         h_t = states[-1].to(acc_dtype)
 
         # --- memory read (model/MegaCRN.py:178-181) ---
@@ -170,13 +210,17 @@ class MegaCRN(nn.Module):
                          dtype=compute_dtype, device=x.device)
         proj_w = self.proj[0].weight.to(compute_dtype).T
         proj_b = self.proj[0].bias.to(compute_dtype)
-        outs = []
-        for t in range(cfg.horizon):
+
+        def dec_step(go, y_cov_t, *states):
             h_de, states = stack_step(self.decoder,
-                                      torch.cat([go, y_cov[:, t]], dim=-1),
+                                      torch.cat([go, y_cov_t], dim=-1),
                                       states, supports, cfg.cheb_k,
                                       aggregate)
-            out_t = h_de @ proj_w + proj_b
+            return h_de @ proj_w + proj_b, states
+
+        outs = []
+        for t in range(cfg.horizon):
+            out_t, states = run(dec_step, go, y_cov[:, t], *states)
             outs.append(out_t)
             go = (out_t if use_truth is None
                   else torch.where(use_truth[t], labels[:, t], out_t))
@@ -186,44 +230,91 @@ class MegaCRN(nn.Module):
     def _graph(self, road_supports, compute_dtype):
         """(supports, aggregate) of the configured backend, with the
         supports cast to compute_dtype."""
-        backend = self.cfg.graph_backend
+        cfg = self.cfg
+        backend = cfg.graph_backend
+        mem = self.memory
         if backend == "dense":
-            mem = self.memory
-            supports = meta_graph(mem["Memory"], mem["We1"], mem["We2"])
-            return supports.to(compute_dtype), cheb_aggregate
+            if cfg.dense_impl not in ("recursive", "stacked"):
+                raise ValueError(f"unknown dense_impl {cfg.dense_impl!r}")
+            supports = meta_graph(mem["Memory"], mem["We1"],
+                                  mem["We2"]).to(compute_dtype)
+            if cfg.dense_impl == "recursive":
+                return supports, cheb_aggregate
+            # The polynomial stack once per forward, after the cast, so its
+            # N^3 products run in compute_dtype; every aggregation is then
+            # one tall product.
+            poly = cheb_support_stack(supports, cfg.cheb_k)
+            num_s = supports.shape[0]
+
+            def aggregate(_supports, x, cheb_k):
+                return cheb_aggregate_prestacked(poly, num_s, x, cheb_k)
+
+            return supports, aggregate
         if backend == "road_sparse":
             if road_supports is None:
                 raise ValueError("graph_backend='road_sparse' requires "
-                                 "road_supports=StackedRoadPack or "
-                                 "[(BlockELL, BlockELL_t), ...]")
-            if isinstance(road_supports, StackedRoadPack):
-                if road_supports.num_supports != self.cfg.num_supports:
-                    raise ValueError("StackedRoadPack.num_supports != "
-                                     "cfg.num_supports")
-                aggregate = cheb_aggregate_sparse_stacked
+                                 "road_supports=StackedRoadPack, "
+                                 "[(BlockELL, BlockELL_t), ...] or a "
+                                 "stacked node-ELL pack")
+            if isinstance(road_supports, _PACKS):
+                if road_supports.num_supports != cfg.num_supports:
+                    raise ValueError(f"{type(road_supports).__name__}"
+                                     ".num_supports != cfg.num_supports")
+                aggregate = (cheb_aggregate_sparse_stacked
+                             if isinstance(road_supports, StackedRoadPack)
+                             else cheb_aggregate_node_ell)
             elif isinstance(road_supports, (list, tuple)) and all(
                     isinstance(pair, (list, tuple)) and len(pair) == 2
                     and all(isinstance(a, BlockELL) for a in pair)
                     for pair in road_supports):
-                if len(road_supports) != self.cfg.num_supports:
+                if len(road_supports) != cfg.num_supports:
                     raise ValueError("len(road_supports) != "
                                      "cfg.num_supports")
                 aggregate = cheb_aggregate_sparse
             else:
-                raise NotImplementedError(
-                    f"{type(road_supports).__name__} road supports are not "
-                    "ported yet (ROADMAP Queue 1 item 1: node-ELL packs)")
-            # Only the tile data narrows (a no-op once the caller has cast
-            # it); the kernels accumulate in f32. The transposed packs are
-            # cast only when autograd records, since only a backward reads
-            # them.
+                raise TypeError(
+                    f"{type(road_supports).__name__} is not a road_sparse "
+                    "graph constant: give a StackedRoadPack, [(BlockELL, "
+                    "BlockELL_t), ...], a StackedNodeELL or a "
+                    "BucketedStackedNodeELL")
+            # Only the values narrow (a no-op once the caller has cast
+            # them). The transposed packs are cast only when autograd
+            # records, since only a backward reads them.
             return (road_supports_to(road_supports, dtype=compute_dtype,
                                      transpose=torch.is_grad_enabled()),
                     aggregate)
-        items = {"sparse_meta": 7, "dense_ring": 11}
-        if backend not in items:
+        if backend == "sparse_meta":
+            if not isinstance(road_supports, _NODE_PATTERNS + (BlockPattern,)):
+                raise TypeError(
+                    "graph_backend='sparse_meta' requires road_supports="
+                    "NodeELLPattern, BucketedNodeELLPattern or BlockPattern,"
+                    f" got {type(road_supports).__name__}")
+            pattern = road_supports_to(road_supports, dtype=compute_dtype,
+                                       transpose=torch.is_grad_enabled())
+            # The learned weights at the parameters' dtype, then cast.
+            if isinstance(pattern, _NODE_PATTERNS):
+                weights = sparse_meta_graph_node(mem["Memory"], mem["We1"],
+                                                 mem["We2"], pattern)
+                if isinstance(pattern, BucketedNodeELLPattern):
+                    weights = tuple(tuple(w_b.to(compute_dtype) for w_b in w)
+                                    for w in weights)
+                else:
+                    weights = tuple(w.to(compute_dtype) for w in weights)
+
+                def aggregate(weights_, x, cheb_k):
+                    return cheb_aggregate_learned_node(weights_, pattern, x,
+                                                       cheb_k)
+            else:
+                weights = tuple(t.to(compute_dtype) for t in sparse_meta_graph(
+                    mem["Memory"], mem["We1"], mem["We2"], pattern))
+
+                def aggregate(tiles, x, cheb_k):
+                    return cheb_aggregate_learned_sparse(tiles, pattern, x,
+                                                         cheb_k)
+
+            return weights, aggregate
+        if backend != "dense_ring":
             raise ValueError(f"unknown graph_backend {backend!r}")
         raise NotImplementedError(
-            f"graph_backend={backend!r} is not ported yet (ROADMAP Queue 1 "
-            f"item {items[backend]})")
-
+            "graph_backend='dense_ring' is not ported yet (ROADMAP Queue 1 "
+            "item 11)")

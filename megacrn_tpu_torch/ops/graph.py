@@ -41,6 +41,43 @@ def cheb_aggregate(supports: torch.Tensor, x: torch.Tensor,
     return torch.stack(terms, dim=2)
 
 
+def cheb_support_stack(supports: torch.Tensor,
+                       cheb_k: int) -> torch.Tensor:
+    """The row-stacked Chebyshev polynomial matrices, built once per
+    forward: ``[T_1(A_0); ..; T_{K-1}(A_0); T_1(A_1); ..]`` ->
+    ((K-1)*S*N, N), by the matrix recursion ``T_k = 2 A T_{k-1} - T_{k-2}``.
+    ``T_0 = I`` is not stacked: ``cheb_aggregate_prestacked`` splices x
+    itself in."""
+    s_num, n, _ = supports.shape
+    rows = []
+    for a in supports:
+        t_prev = torch.eye(n, dtype=a.dtype, device=a.device)
+        t_cur = a
+        rows.append(a)
+        for _ in range(2, cheb_k):
+            t_prev, t_cur = t_cur, 2.0 * (a @ t_cur) - t_prev
+            rows.append(t_cur)
+    return torch.cat(rows, dim=0)
+
+
+def cheb_aggregate_prestacked(stack: torch.Tensor, num_supports: int,
+                              x: torch.Tensor, cheb_k: int) -> torch.Tensor:
+    """Chebyshev feature stack through ONE tall product with a precomputed
+    polynomial stack (``cheb_support_stack``): ``((K-1)*S*N, N) @ (N, B*C)``
+    in place of the (K-1)-deep per-support recursion of ``cheb_aggregate``.
+    Same math; output layout and order identical: (B, N, S*K, C)."""
+    b, n, c = x.shape
+    km1 = cheb_k - 1
+    y = torch.einsum("pm,bmc->bpc", stack, x)
+    terms = []
+    for s in range(num_supports):
+        terms.append(x)
+        for k in range(km1):
+            lo = (s * km1 + k) * n
+            terms.append(y[:, lo:lo + n, :])
+    return torch.stack(terms, dim=2)
+
+
 def cheb_aggregate_sparse_stacked(packs, x: torch.Tensor,
                                   cheb_k: int) -> torch.Tensor:
     """Chebyshev stack over static sparse supports through ONE

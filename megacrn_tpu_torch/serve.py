@@ -19,7 +19,8 @@ from torch import nn
 from megacrn_tpu_torch import resolve_device
 from megacrn_tpu_torch.config import MegaCRNConfig
 from megacrn_tpu_torch.interop import params_from_flat
-from megacrn_tpu_torch.models.megacrn import DTYPES, MegaCRN
+from megacrn_tpu_torch.models.megacrn import (DTYPES, MegaCRN,
+                                              road_supports_to)
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 
 
@@ -35,9 +36,9 @@ class Predictor:
       scaler_mean / scaler_std: the training normalisation stats.
       max_batch: the fixed batch; smaller requests are padded, larger ones
         chunked.
-      road_supports: the ``StackedRoadPack`` of a ``road_sparse`` config;
-        its forward pack is moved to ``device`` and cast to the compute
-        dtype here.
+      road_supports: the graph constant of a ``road_sparse`` or
+        ``sparse_meta`` config (any the model takes); its forward side is
+        moved to ``device`` and cast to the compute dtype here.
       device: where the model runs; the card unless the caller says
         otherwise (``resolve_device``).
     """
@@ -58,8 +59,9 @@ class Predictor:
         self.max_batch = max_batch
         # Cast once here, so the forward's cast to compute_dtype is a no-op.
         self.road_supports = (None if road_supports is None
-                              else road_supports.to(
-                                  self.device, DTYPES[cfg.compute_dtype]))
+                              else road_supports_to(
+                                  road_supports, self.device,
+                                  DTYPES[cfg.compute_dtype]))
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: MegaCRNConfig,

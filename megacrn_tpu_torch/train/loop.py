@@ -131,8 +131,9 @@ def fit(
     scaler_mean, scaler_std (scalars).
     ``ckpt_backend``: 'npz' (single-file atomic); Orbax needs the JAX
     package.
-    ``road_supports``: the ``road_sparse`` graph constant (a
-    ``StackedRoadPack`` or block-ELL pairs), moved to the device here.
+    ``road_supports``: the graph constant of a ``road_sparse`` or
+    ``sparse_meta`` config (``models.megacrn.road_supports_to`` lists
+    them), moved to the device here.
     ``initial_params``: a start point in the JAX package's flat naming
     (numpy arrays), in place of the seeded init (and re-init).
     ``profile_dir``: capture a ``torch.profiler`` trace of

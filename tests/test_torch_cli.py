@@ -1,7 +1,8 @@
 """The port's traintest CLI (megacrn_tpu_torch.cli.traintest) end to end on
 the CPU (``--device cpu``): every ported capability reachable by flag, the
 run-dir artifact contract, and every flag of the JAX CLI that the port does
-not have yet refused with its ROADMAP item."""
+not have yet (dense_ring, the mesh, Orbax) refused with its ROADMAP
+item."""
 import json
 import os
 
@@ -12,6 +13,12 @@ import torch
 from megacrn_tpu_torch.cli.traintest import main
 from megacrn_tpu_torch.data.synthetic import synthetic_road_adjacency
 from megacrn_tpu_torch.kernels import spmm_coo
+from megacrn_tpu_torch.kernels.sparse_graph import BlockPattern
+from megacrn_tpu_torch.kernels.sparse_graph_node import (
+    BucketedNodeELLPattern, NodeELLPattern)
+from megacrn_tpu_torch.kernels.spmm_ell_node import (BucketedStackedNodeELL,
+                                                     StackedNodeELL)
+from megacrn_tpu_torch.train import loop
 
 torch.set_num_threads(1)
 BASE = ["--dataset", "SYNTH", "--num_nodes", "16", "--rnn_units", "8",
@@ -101,13 +108,9 @@ def test_cli_eval_aggregation_concat(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--graph_backend", "sparse_meta"], "item 7"),
     (["--graph_backend", "dense_ring"], "item 11"),
     (["--mesh_data", "2"], "item 11"),
     (["--mesh_node", "2"], "item 11"),
-    (["--road_impl", "ell", "--graph_backend", "road_sparse"], "item 1"),
-    (["--remat"], "item 2"),
-    (["--dense_impl", "stacked"], "item 3"),
     (["--ckpt_backend", "orbax"], "item 4"),
 ])
 def test_cli_unported_flags_exit_naming_their_roadmap_item(tmp_path, flags,
@@ -116,6 +119,57 @@ def test_cli_unported_flags_exit_naming_their_roadmap_item(tmp_path, flags,
                        match=f"not ported yet: .*ROADMAP Queue 1 {item} "):
         _run(tmp_path, flags)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("flags,backend,constant,knobs", [
+    (["--graph_backend", "road_sparse", "--road_impl", "ell"], "road_sparse",
+     (StackedNodeELL, BucketedStackedNodeELL), {}),
+    (["--graph_backend", "sparse_meta"], "sparse_meta",
+     (NodeELLPattern, BucketedNodeELLPattern), {}),
+    (["--graph_backend", "sparse_meta", "--sparse_meta_impl", "block"],
+     "sparse_meta", BlockPattern, {}),
+    (["--dense_impl", "stacked"], "dense", type(None),
+     {"dense_impl": "stacked"}),
+    (["--remat"], "dense", type(None), {"remat": True}),
+    (["--graph_backend", "sparse_meta", "--remat"], "sparse_meta",
+     (NodeELLPattern, BucketedNodeELLPattern), {"remat": True}),
+])
+def test_cli_new_backends_and_knobs_train(tmp_path, monkeypatch, flags,
+                                          backend, constant, knobs):
+    """The flags this slice ports train end to end: the model config carries
+    them and fit gets the graph constant the flag names."""
+    seen = []
+    fit = loop.fit
+
+    def spy(model_cfg, *a, road_supports=None, **kw):
+        seen.append((model_cfg, road_supports))
+        return fit(model_cfg, *a, road_supports=road_supports, **kw)
+
+    monkeypatch.setattr(loop, "fit", spy)
+    result = _run(tmp_path, flags)
+    ((cfg, sup),) = seen
+    assert cfg.graph_backend == backend
+    assert isinstance(sup, constant)
+    for k, v in knobs.items():
+        assert getattr(cfg, k) == v
+    assert result["epochs_run"] == 1
+
+
+def test_cli_auto_road_impl_takes_the_block_coo_kernel():
+    """--road_impl auto is the block-COO kernel (the faster path on the
+    H100), and ell the node-ELL pack, from the same adjacency."""
+    from megacrn_tpu_torch.cli import traintest
+
+    built = {}
+    for impl in ("auto", "ell"):
+        args = traintest.build_parser().parse_args(
+            ["--dataset", "SYNTH", "--num_nodes", "16", "--graph_backend",
+             "road_sparse", "--road_impl", impl])
+        cfg, _ = traintest.configs_from_args(args)
+        built[impl] = traintest.build_road_supports(args, cfg)
+    assert isinstance(built["auto"], spmm_coo.StackedRoadPack)
+    assert built["auto"].impl == "kernel"
+    assert isinstance(built["ell"], (StackedNodeELL, BucketedStackedNodeELL))
 
 
 def test_cli_run_dir_artifact_contract_and_resume(tmp_path):

@@ -79,9 +79,11 @@ def _trajectory(metrics_path):
 
 
 def _fit_both(tmp_path, protocol, model_kw, train_kw, dtype=np.float32,
-              road=False):
+              road=False, constants=None):
     """Run JAX fit and the port's fit from the same weights and data;
-    returns ((jax epochs, jax final), (port epochs, port final))."""
+    returns ((jax epochs, jax final), (port epochs, port final)).
+    ``constants``: the (JAX, port) graph constants, else a block-COO pack
+    with ``road``."""
     kind, tkw = train_kw
     tcfg_m = tconfig.MegaCRNConfig(**model_kw)
     jcfg_m = jconfig.MegaCRNConfig(**model_kw)
@@ -92,7 +94,7 @@ def _fit_both(tmp_path, protocol, model_kw, train_kw, dtype=np.float32,
                     device="cpu", dtype=torch_dtype)
     init = flat_from_state_dict(model.state_dict(), 1)
     assert all(v.dtype == dtype for v in init.values())
-    jsup = tsup = None
+    jsup, tsup = constants or (None, None)
     if road:
         sups = list(dual_random_walk_supports(
             synthetic_road_adjacency(NODES, avg_degree=4, seed=1)))
@@ -169,6 +171,44 @@ def test_fit_matches_jax_fit_f32_road_sparse_stacked_pack(tmp_path):
     want, got = _fit_both(tmp_path, "METRLA",
                           _model_kw(graph_backend="road_sparse"),
                           _train_kw("METRLA"), road=True)
+    _assert_trajectories(want, got, 5e-3, ["mae", "mape", "rmse", "loss"])
+
+
+# The new graph backends and knobs, each as a flag of both CLIs.
+CLI_FLAGS = {
+    "road_impl_ell": ["--graph_backend", "road_sparse", "--road_impl", "ell"],
+    "sparse_meta_node": ["--graph_backend", "sparse_meta",
+                         "--sparse_meta_impl", "node"],
+    "sparse_meta_block": ["--graph_backend", "sparse_meta",
+                          "--sparse_meta_impl", "block"],
+    "dense_impl_stacked": ["--dense_impl", "stacked"],
+    "remat": ["--graph_backend", "road_sparse", "--road_impl", "pallas",
+              "--remat"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_FLAGS))
+def test_fit_on_each_new_cli_flag_matches_jax_fit(tmp_path, name):
+    """Each new flag parsed by both CLIs on SYNTH at the CI config: the
+    model config and the graph constant come from each package's own
+    ``configs_from_args`` and ``build_road_supports``; then per-epoch train
+    loss, val metrics and the final test metrics of both fits, f32 rtol
+    5e-3 (as above)."""
+    argv = ["--dataset", "SYNTH", "--num_nodes", str(NODES), "--rnn_units",
+            str(UNITS), "--mem_num", str(MEM), "--mem_dim", str(UNITS),
+            "--seq_len", str(SEQ), "--horizon", str(SEQ),
+            "--use_curriculum_learning", "False"] + CLI_FLAGS[name]
+    jargs = jcli.build_parser().parse_args(argv)
+    targs = tcli.build_parser().parse_args(argv)
+    jcfg, _ = jcli.configs_from_args(jargs)
+    tcfg, _ = tcli.configs_from_args(targs)
+    model_kw = dataclasses.asdict(tcfg)
+    assert jconfig.MegaCRNConfig(**model_kw) == jcfg
+    jsup, _ = jcli.build_road_supports(jargs, jcfg)
+    tsup = tcli.build_road_supports(targs, tcfg)
+    assert type(tsup).__name__ == type(jsup).__name__
+    want, got = _fit_both(tmp_path, "METRLA", model_kw, _train_kw("METRLA"),
+                          constants=(jsup, tsup))
     _assert_trajectories(want, got, 5e-3, ["mae", "mape", "rmse", "loss"])
 
 

@@ -52,7 +52,11 @@ def test_port_imports_no_jax_no_jax_package_and_no_pandas():
                 "megacrn_tpu_torch.train.telemetry",
                 "megacrn_tpu_torch.train.eval_modes",
                 "megacrn_tpu_torch.train.loop",
-                "megacrn_tpu_torch.cli.traintest"):
+                "megacrn_tpu_torch.cli.traintest",
+                # the graph backends slice
+                "megacrn_tpu_torch.kernels.spmm_ell_node",
+                "megacrn_tpu_torch.kernels.sparse_graph_node",
+                "megacrn_tpu_torch.kernels.sparse_graph"):
         assert mod in res["modules"]
 
 

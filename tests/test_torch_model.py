@@ -232,7 +232,7 @@ def test_state_dict_names_round_trip_through_jax_naming():
     assert model.proj[0].weight.shape == (cfg.output_dim, cfg.decoder_dim)
 
 
-@pytest.mark.parametrize("backend", ["sparse_meta", "dense_ring"])
+@pytest.mark.parametrize("backend", ["dense_ring"])
 def test_backends_not_ported_yet_raise(backend):
     cfg = MegaCRNConfig(num_nodes=8, rnn_units=4, mem_num=2, mem_dim=4,
                         horizon=2, seq_len=2, graph_backend=backend)

@@ -216,7 +216,8 @@ def test_road_supports_that_do_not_fit_raise(bad):
         with pytest.raises(ValueError, match="num_supports"):
             model(x, x, road_supports=pairs[:1])
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="not a road_sparse graph "
+                                            "constant"):
             model(x, x, road_supports=[object()])
 
 
