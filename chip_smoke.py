@@ -32,7 +32,10 @@ Phases (any failure exits nonzero; nothing is caught and skipped):
    once with the block-COO ``StackedRoadPack`` and once with block-ELL
    pairs: finite losses, kernel launches per step (forward and backward)
    against counts derived from the config, gradients against the same step
-   on the plain versions, ms per step and one profiled step.
+   on the plain versions over 4 weight seeds x 2 batch seeds on each
+   constant (per run the worst array and element against its limit, the
+   first forward's smallest top-2 attention margins and triplet hinge), ms
+   per step and one profiled step.
 8. Fit (a), the main path at full width: ``cli.traintest.main`` in-process,
    ``--dataset EXPYTKY --graph_backend road_sparse --road_impl pallas
    --epochs 2 --seed 0`` over the synthetic EXPY-TKY months and a synthetic
@@ -69,7 +72,25 @@ peak device memory, one served chunk's ms, and both kernels' counts (0):
     ``--graph_backend sparse_meta --sparse_meta_impl node`` and
     ``--dense_impl stacked``.
 
-The last lines: a JSON line of the new paths, one of their ops, one of the
+The two other model families, neither through a hand-written kernel (both
+counts must read 0 on every path):
+
+17. MegaCRNx at the reference defaults (METR-LA, N=207, 12->12, units 32,
+    memory 10x32, embed 8, batch 64), stepwise and sequence decoders: 5
+    train steps each (ms, device kernels, busy ms, idle share, peak) and a
+    served chunk through ``MegaCRNxPredictor``; a small model on the card
+    against the CPU; ``cli.traintest_megacrnx`` for 2 epochs on SYNTH at
+    N=207.
+18. GTS at the METR-LA width (N=207, units 64, diffusion 3, embedding 100,
+    the 23,990-step training series that ``--synth_steps 34272`` gives):
+    5 train steps with the curriculum and the Gumbel noise on, the graph
+    learner's share of a forward, the sampled graphs' edges, a served chunk
+    through ``GTSPredictor``; a small model on the card against the CPU
+    (served, and a train-mode step's loss and gradients), noise off;
+    ``cli.traintest_gts`` for 1 epoch at that width.
+
+The last lines: a JSON line of phases 11-16's paths, one of their ops,
+one of the two families' paths (with phase 7's gradient holds), one of the
 kernels, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -630,11 +651,15 @@ def pinned_top2():
     where two attention scores nearly tie, top-2 (not continuous there) may
     pick another slot; pinned, both steps differentiate the same function.
     Yields a dict whose "moved" counts the (batch, node) pairs whose own
-    choice differed from the replayed one."""
+    choice differed from the replayed one, and whose "calls" holds, per
+    call, the smallest gaps between the 1st and 2nd and between the 2nd and
+    3rd largest attention scores over the (batch, node) pairs, and the
+    triplet loss's hinge ``d(q, pos) - d(q, neg) + 1`` of every pair (the
+    loss's relu is not differentiable where it is 0)."""
     from megacrn_tpu_torch.models import megacrn as mm
 
     orig = mm.query_memory
-    state = {"ind": None, "moved": 0}
+    state = {"ind": None, "moved": 0, "calls": []}
 
     def query_memory(mem, h_t):
         value, query, pos, neg = orig(mem, h_t)
@@ -645,7 +670,18 @@ def pinned_top2():
         else:
             state["moved"] += int((ind != state["ind"]).any(0).sum())
             ind = state["ind"]
-        return value, query, memory[ind[0]], memory[ind[1]]
+        pos, neg = memory[ind[0]], memory[ind[1]]
+        with torch.no_grad():
+            att = torch.softmax(query @ memory.T, dim=-1)
+            top = att.topk(3, dim=-1).values
+            hinge = (torch.linalg.vector_norm(query - pos + 1e-6, dim=-1)
+                     - torch.linalg.vector_norm(query - neg + 1e-6, dim=-1)
+                     + 1.0)
+            state["calls"].append({
+                "gap12": (top[..., 0] - top[..., 1]).min().item(),
+                "gap23": (top[..., 1] - top[..., 2]).min().item(),
+                "hinge": hinge})
+        return value, query, pos, neg
 
     mm.query_memory = query_memory
     try:
@@ -654,13 +690,131 @@ def pinned_top2():
         mm.query_memory = orig
 
 
+# Phase 7's gradient hold runs over these weight and batch seeds on each
+# kernel constant.
+HOLD_WEIGHT_SEEDS = (0, 1, 2, 3)
+HOLD_BATCH_SEEDS = (0, 1)
+
+
+def worst_element(got, want):
+    """(array, element, |got - want|, its limit, err / limit) of the
+    largest err / limit over every array of two gradient dicts, the limit
+    GRAD_TOL's atol_rel * max|want| + rtol * |want| per array."""
+    rtol, atol_rel = GRAD_TOL
+    worst = None
+    for k, w in want.items():
+        g = got[k]
+        require((g is None) == (w is None), f"grad of {k}")
+        if w is None:
+            continue
+        require(bool(torch.isfinite(g).all().item()), f"grad of {k} is not "
+                                                       "finite")
+        err = (g - w).abs()
+        limit = atol_rel * w.abs().max() + rtol * w.abs()
+        ratio = err / limit
+        i = int(ratio.argmax())
+        r = ratio.flatten()[i].item()
+        if worst is None or r > worst[4]:
+            idx = tuple(int(v) for v in np.unravel_index(i, tuple(w.shape)))
+            worst = (k, idx, err.flatten()[i].item(),
+                     limit.flatten()[i].item(), r)
+    return worst
+
+
+def grad_holds(cfg, tcfg, kind, const, counter, others, dev):
+    """Phase 7's hold of the kernel step against the plain step, over
+    HOLD_WEIGHT_SEEDS x HOLD_BATCH_SEEDS: one step's loss and gradients on
+    the same weights, batch, teacher-forcing mask and memory top-2 slots,
+    each array within GRAD_TOL (never widened). Per run it prints the worst
+    array, its worst element, that element's |got - want| against its
+    limit, the first forward's smallest top-2 attention margins and its
+    smallest |hinge| of the triplet loss, and the pairs whose hinge changes
+    sign between the two forwards; all runs are printed before a failure
+    stops the script. The first run also checks the forward and backward
+    launches of the kernel step. Returns the runs."""
+    from megacrn_tpu_torch.models.megacrn import MegaCRN
+    from megacrn_tpu_torch.train.steps import make_loss_fn
+
+    want_fwd, want_bwd = launches_per_step(cfg, kind, tcfg.batch_size)
+    bs0 = half_threshold(cfg)
+    runs = []
+    for w_seed in HOLD_WEIGHT_SEEDS:
+        base = MegaCRN(cfg, generator=torch.Generator().manual_seed(w_seed),
+                       device=dev)
+        for b_seed in HOLD_BATCH_SEEDS:
+            batch = train_batches(cfg, tcfg.batch_size, dev, n=1,
+                                  seed=b_seed)[0]
+            grads, losses, counts = [], [], []
+            with pinned_top2() as pin:
+                for sup in (const, _plain(const)):
+                    model = copy.deepcopy(base)
+                    loss_fn = make_loss_fn(model, tcfg, road_supports=sup)
+                    reset_launches(counter, *others)
+                    loss = loss_fn(*batch, bs0,
+                                   torch.Generator(device=dev).manual_seed(1))
+                    fwd = counter.launches
+                    loss.backward()
+                    counts.append((fwd, counter.launches - fwd,
+                                   sum(o.launches for o in others)))
+                    losses.append(loss.item())
+                    grads.append({k: p.grad
+                                  for k, p in model.named_parameters()})
+                    del model, loss_fn, loss
+            require(counts[0][2] == counts[1][2] == 0,
+                    f"{kind}: another kernel was launched")
+            require(counts[1][:2] == (0, 0),
+                    f"{kind}: the plain path launched the kernel")
+            if not runs:
+                require(counts[0][:2] == (want_fwd, want_bwd),
+                        f"{kind}: {counts[0][0]} forward and {counts[0][1]} "
+                        f"backward {kernel_name(counter)} launches in a "
+                        f"step, expected {want_fwd} and {want_bwd}")
+            array, elem, err, limit, ratio = worst_element(*grads)
+            first, second = pin["calls"][0], pin["calls"][1]
+            flips = int(((first["hinge"] > 0) != (second["hinge"] > 0))
+                        .sum())
+            run = {"weight_seed": w_seed, "batch_seed": b_seed,
+                   "loss": losses[0], "plain_loss": losses[1],
+                   "loss_ok": abs(losses[0] - losses[1])
+                   <= 1e-5 * abs(losses[1]),
+                   "worst_array": array, "worst_element": elem,
+                   "abs_err": err, "limit": limit, "err_over_limit": ratio,
+                   "ok": ratio <= 1.0, "top2_gap23": first["gap23"],
+                   "top2_gap12": first["gap12"],
+                   "min_abs_hinge": first["hinge"].abs().min().item(),
+                   "hinge_flips": flips, "moved": pin["moved"]}
+            runs.append(run)
+            print(f"train {kind} grad hold, weights seed {w_seed}, batch "
+                  f"seed {b_seed}: {'ok' if run['ok'] else 'FAIL'}; worst "
+                  f"{array}{list(elem)}: |got-want| {err:.3e} vs limit "
+                  f"{limit:.3e} ({ratio:.3f} of it); loss {losses[0]:.8f} "
+                  f"vs plain {losses[1]:.8f}; first forward's smallest "
+                  f"top-2 margins: 2nd-3rd {first['gap23']:.3e}, 1st-2nd "
+                  f"{first['gap12']:.3e}; smallest |hinge| "
+                  f"{run['min_abs_hinge']:.3e}, hinge sign flips {flips}; "
+                  f"top-2 slots moved {pin['moved']} of "
+                  f"{tcfg.batch_size * cfg.num_nodes}")
+            del grads
+    bad = [r for r in runs if not (r["ok"] and r["loss_ok"])]
+    require(not bad, f"{kind}: the kernel step's gradients or loss disagree "
+                     f"with the plain step's in {len(bad)} of {len(runs)} "
+                     f"runs: " + json.dumps(bad))
+    print(f"train {kind}: {len(runs)} gradient holds passed (rtol "
+          f"{GRAD_TOL[0]:g}, atol {GRAD_TOL[1]:g}*max|g| per array); "
+          f"smallest 2nd-3rd top-2 margin "
+          f"{min(r['top2_gap23'] for r in runs):.3e}, largest "
+          f"err/limit {max(r['err_over_limit'] for r in runs):.3f}")
+    return runs
+
+
 def phase_train(sp, se, cfg, tcfg, constants, dev):
-    """Phase 7: the training slice on each graph constant. Returns
-    {kind: {"launches": {kernel name: launches in 5 steps}, "fwd", "bwd",
-    "ms", "plain_ms"}}."""
+    """Phase 7: the training slice on each graph constant: the gradient
+    holds (``grad_holds``), then 5 timed steps. Returns {kind: {"launches":
+    {kernel name: launches in 5 steps}, "fwd", "bwd", "ms", "plain_ms",
+    "holds"}}."""
     from megacrn_tpu_torch.models.megacrn import MegaCRN
     from megacrn_tpu_torch.train.optim import make_optimizer
-    from megacrn_tpu_torch.train.steps import make_loss_fn, make_train_step
+    from megacrn_tpu_torch.train.steps import make_train_step
 
     require(cfg.use_curriculum_learning, "curriculum learning is off")
     require(tcfg.max_grad_norm is not None, "the clip is off")
@@ -673,65 +827,9 @@ def phase_train(sp, se, cfg, tcfg, constants, dev):
         counter = counters[kind]
         others = [c for k, c in counters.items() if k != kind]
         want_fwd, want_bwd = launches_per_step(cfg, kind, tcfg.batch_size)
+        holds = grad_holds(cfg, tcfg, kind, const, counter, others, dev)
         base = MegaCRN(cfg, generator=torch.Generator().manual_seed(0),
                        device=dev)
-
-        # One step's forward and backward launches, and its gradients
-        # against the same step on the plain versions (same weights, batch,
-        # teacher-forcing mask and memory top-2 slots: the generators share
-        # a seed, and the slots are pinned).
-        grads, losses = [], []
-        with pinned_top2() as pin:
-            steps = []
-            for sup in (const, _plain(const)):
-                model = copy.deepcopy(base)
-                loss_fn = make_loss_fn(model, tcfg, road_supports=sup)
-                reset_launches(*counters.values())
-                loss = loss_fn(*batches[0], bs0,
-                               torch.Generator(device=dev).manual_seed(1))
-                fwd = counter.launches
-                loss.backward()
-                steps.append((sup, model, loss, fwd, counter.launches - fwd,
-                              read_launches(*others)))
-        print(f"train {kind}: memory top-2 slots that moved between the "
-              f"kernel and the plain forward (pinned for the gradient "
-              f"check): {pin['moved']} of "
-              f"{tcfg.batch_size * cfg.num_nodes} (batch, node) pairs")
-        for sup, model, loss, fwd, bwd, other in steps:
-            require(sum(other.values()) == 0,
-                    f"{kind}: another kernel was launched: {other}")
-            if sup is const:
-                require((fwd, bwd) == (want_fwd, want_bwd),
-                        f"{kind}: {fwd} forward and {bwd} backward "
-                        f"{kernel_name(counter)} launches in a step, expected "
-                        f"{want_fwd} and {want_bwd}")
-            else:
-                require(fwd + bwd == 0,
-                        f"{kind}: the plain path launched the kernel")
-            losses.append(loss.item())
-            grads.append({k: p.grad for k, p in model.named_parameters()})
-        worst = 0.0
-        for k, g in grads[0].items():
-            w = grads[1][k]
-            require((g is None) == (w is None), f"{kind}: grad of {k}")
-            if g is None:
-                continue
-            rtol, atol_rel = GRAD_TOL
-            err = (g - w).abs()
-            require(bool(torch.isfinite(g).all().item()) and bool(
-                (err <= atol_rel * w.abs().max() + rtol * w.abs())
-                .all().item()),
-                f"{kind}: grad of {k} disagrees with the plain step, max "
-                f"abs err {err.max().item():.3e}")
-            worst = max(worst, (err / w.abs().max()).max().item())
-        require(abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]),
-                f"{kind}: loss {losses[0]} vs plain {losses[1]}")
-        print(f"train {kind}: one step, {want_fwd} forward + {want_bwd} "
-              f"backward {kernel_name(counter)} launches (derived from the "
-              f"config); loss {losses[0]:.6f} vs plain {losses[1]:.6f}; "
-              f"grads vs plain step: max |err|/max|g| {worst:.3e} (rtol "
-              f"{GRAD_TOL[0]:g}, atol {GRAD_TOL[1]:g}*max|g| per array)")
-        del grads
 
         def steps(sup, seed):
             model = copy.deepcopy(base)
@@ -764,7 +862,8 @@ def phase_train(sp, se, cfg, tcfg, constants, dev):
         profile(f"one {kind} train step",
                 lambda: step(*batches[0], bs0).item(), ms)
         results[kind] = {"launches": launches, "fwd": want_fwd,
-                         "bwd": want_bwd, "ms": ms, "plain_ms": plain_ms}
+                         "bwd": want_bwd, "ms": ms, "plain_ms": plain_ms,
+                         "holds": holds}
     return results
 
 
@@ -779,12 +878,12 @@ def run_dir_of(save_dir):
     return os.path.join(save_dir, name)
 
 
-def fit_records(what, save_dir):
+def fit_records(what, save_dir, artifacts=ARTIFACTS):
     """metrics.jsonl of the one run dir under ``save_dir``, after checking
     that the run dir holds every artifact."""
     run = run_dir_of(save_dir)
     files = os.listdir(run)
-    for suffix in ARTIFACTS:
+    for suffix in artifacts:
         require(any(f.endswith(suffix) for f in files),
                 f"{what}: no *{suffix} in the run dir {run}")
     require(os.path.isdir(os.path.join(run, "src_snapshot",
@@ -794,17 +893,18 @@ def fit_records(what, save_dir):
         return [json.loads(line) for line in f]
 
 
-def run_cli(sp, se, flags):
-    """``cli.traintest.main(flags)`` with both kernels' counts set to 0
-    just before and read just after; returns (result, launches, wall s,
-    peak device GiB)."""
-    from megacrn_tpu_torch.cli import traintest
+def run_cli(sp, se, flags, main=None):
+    """``main(flags)`` (default: ``cli.traintest.main``) with both kernels'
+    counts set to 0 just before and read just after; returns (result,
+    launches, wall s, peak device GiB)."""
+    if main is None:
+        from megacrn_tpu_torch.cli.traintest import main
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(sp.spmm_coo, se.spmm)  # --- this path, counted ---
     t0 = time.perf_counter()
-    result = traintest.main(flags)
+    result = main(flags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(sp.spmm_coo, se.spmm)  # --- read just after ---
@@ -1041,61 +1141,88 @@ def hold_steps(what, runs, tcfg, batch, dev):
     return worst
 
 
-def chunk_ms(pred, x, reps=5):
-    """Median host ms of one served 64-window chunk (ends in the copy to
-    the host), after a warm-up call."""
-    pred.predict(x)
+def measure_family(name, step, sp, se, serve=None, steps=5):
+    """A path at full width: 2 warm-up and ``steps`` timed calls of
+    ``step(i)`` (one train step, returning its loss on the card; host clock
+    to ``.item()``), counted: both kernels' counts set to 0 just before the
+    timed steps and read just after ("launches"), and again around one
+    served chunk ("serve_launches"; ``serve()`` returns its ms). The peak
+    device memory from the first step on, and one profiled step (device
+    kernels, busy ms, idle share). The callers check the counts."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        step(i).item()  # warm-up
+    reset_launches(sp.spmm_coo, se.spmm)  # --- this path, counted ---
+    times, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(2 + i).item())
+        times.append(1e3 * (time.perf_counter() - t0))
+    launches = read_launches(sp.spmm_coo, se.spmm)  # --- read just after ---
+    require(np.isfinite(losses).all(), f"{name}: non-finite loss {losses}")
+    ms = float(np.median(times))
+    out = {"step_ms": ms, "peak_GiB": torch.cuda.max_memory_allocated()
+           / 2**30, "launches": launches, "losses": losses}
+    out.update(profile(f"one {name} train step", lambda: step(0).item(), ms))
+    if serve is not None:
+        reset_launches(sp.spmm_coo, se.spmm)  # --- serving, counted ---
+        out["chunk_ms"] = serve()
+        out["serve_launches"] = read_launches(sp.spmm_coo, se.spmm)
+    print(f"path {name}: {ms:.3f} ms per train step (host clock to "
+          f"loss.item(), median of {steps}); device kernels per step "
+          f"{out['device_kernels']}, busy {out['busy_ms']} ms, idle share "
+          f"{out['idle_share']}; peak device memory {out['peak_GiB']:.3f} "
+          f"GiB; served 64-window chunk {out.get('chunk_ms')} ms; launches "
+          f"{launches}; losses {[round(v, 6) for v in losses]}")
+    return out
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of ``fn()`` ending in a synchronize, after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        pred.predict(x)
+        fn()
+        torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(times))
 
 
+def chunk_ms(pred, x):
+    """Median host ms of one served 64-window chunk (ends in the copy to
+    the host), after a warm-up call."""
+    return host_ms(lambda: pred.predict(x))
+
+
 def measure_path(name, model, tcfg, const, batches, dev, sp, se, steps=5,
                  serve=True):
-    """A new path at full width: 2 warm-up and ``steps`` timed train steps
-    of ``model`` on the graph constant ``const`` (counted: both kernels'
-    counts set to 0 just before the timed steps and read just after), the
-    peak device memory from the first step on, one profiled step (device
-    kernels, busy ms, idle share) and, with ``serve``, one served 64-window
-    chunk through the Predictor. Returns the numbers."""
+    """``measure_family`` of a MegaCRN train step of ``model`` on the graph
+    constant ``const`` and, with ``serve``, a chunk served through the
+    Predictor."""
     from megacrn_tpu_torch.serve import Predictor
     from megacrn_tpu_torch.train.optim import make_optimizer
     from megacrn_tpu_torch.train.steps import make_train_step
 
-    cfg = model.cfg
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     step = make_train_step(model, tcfg, make_optimizer(model.parameters(),
                                                        tcfg),
                            torch.Generator(device=dev).manual_seed(2),
                            road_supports=const)
-    bs = half_threshold(cfg)
-    run_steps(step, batches, 2, bs)  # warm-up
-    reset_launches(sp.spmm_coo, se.spmm)  # --- this path, counted ---
-    ms, losses = run_steps(step, batches, steps, bs + 2)
-    launches = read_launches(sp.spmm_coo, se.spmm)  # --- read just after ---
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    out = {"step_ms": ms, "peak_GiB": peak, "launches": launches,
-           "losses": losses}
-    out.update(profile(f"one {name} train step",
-                       lambda: step(*batches[0], bs).item(), ms))
-    del step
+    bs = half_threshold(model.cfg)
+    chunk = None
     if serve:
-        x = requests(np.random.RandomState(5), batches[0][0].shape[0], cfg)
-        out["chunk_ms"] = chunk_ms(
-            Predictor(model, cfg, 45.0, 15.0, 64, road_supports=const,
-                      device=dev), x)
-    print(f"path {name}: {ms:.3f} ms per train step (host clock to "
-          f"loss.item(), median of {steps}); device kernels per step "
-          f"{out['device_kernels']}, busy {out['busy_ms']} ms, idle share "
-          f"{out['idle_share']}; peak device memory {peak:.3f} GiB; served "
-          f"64-window chunk {out.get('chunk_ms', 'not served')} ms; "
-          f"launches in {steps} steps {launches}")
-    return out
+        x = requests(np.random.RandomState(5), batches[0][0].shape[0],
+                     model.cfg)
+        pred = Predictor(model, model.cfg, 45.0, 15.0, 64,
+                         road_supports=const, device=dev)
+        chunk = lambda: chunk_ms(pred, x)  # noqa: E731
+    return measure_family(
+        name, lambda i: step(*batches[i % len(batches)], bs + i), sp, se,
+        serve=chunk, steps=steps)
 
 
 def device_kernels(fn, calls=3):
@@ -1674,6 +1801,258 @@ def phase_cli_new_flags(sp, se, d, adj_path):
     return out
 
 
+# --- The two other model families, MegaCRNx and GTS. Neither reaches a
+# Pallas kernel in the JAX package (MegaCRNx aggregates with the dense
+# cheb_aggregate, GTS diffuses over a dense sampled adjacency), so each path
+# runs plain PyTorch: its spmm_coo and spmm_ell counts are read around it
+# and must be 0.
+
+
+def check_family_cli(name, sp, se, main, flags, save, artifacts):
+    """One in-process run of a family's CLI, counted; its run dir holds
+    every artifact. Returns (result, numbers)."""
+    result, launches, wall, peak = run_cli(sp, se, flags, main=main)
+    require(sum(launches.values()) == 0,
+            f"{name} launched an SpMM kernel: {launches}")
+    records = fit_records(name, save, artifacts)
+    epochs = [r for r in records if "sec_per_step" in r]
+    for r in epochs:
+        print(f"{name} epoch {r['epoch']}: {r['seconds']:.3f} s, train "
+              f"{r['train_seconds']:.3f} s over {r['steps']} steps, "
+              f"sec_per_step {r['sec_per_step']:.5f}")
+    out = {"launches": launches, "wall_s": wall, "peak_GiB": peak,
+           "epochs": len(epochs),
+           "sec_per_step": [r["sec_per_step"] for r in epochs],
+           "epoch_s": [r["seconds"] for r in epochs]}
+    print(f"{name}: wall {wall:.2f} s, peak {peak:.3f} GiB, launches "
+          f"{launches}, test metrics {json.dumps(result['test_metrics'])}")
+    return result, out
+
+
+def phase_megacrnx(sp, se, d, dev):
+    """Phase 17: MegaCRNx at the reference defaults (traintest_MegaCRNx.py's
+    parser: METR-LA, N=207, 12->12, units 32, memory 10x32, embed 8, one
+    layer, batch 64), in both decoders: 5 train steps and a served chunk
+    each; a small model on the card against the CPU; the CLI for 2 epochs
+    on SYNTH at N=207."""
+    from megacrn_tpu_torch.cli import traintest_megacrnx as cli
+    from megacrn_tpu_torch.models.megacrnx import MegaCRNx, MegaCRNxConfig
+    from megacrn_tpu_torch.serve import MegaCRNxPredictor
+    from megacrn_tpu_torch.train.megacrnx_loop import \
+        make_megacrnx_train_step
+
+    cfg, tcfg = cli.configs_from_args(cli.build_parser().parse_args([]), 207)
+    require((cfg.num_nodes, cfg.seq_len, cfg.horizon, cfg.rnn_units,
+             cfg.mem_num, cfg.mem_dim, cfg.embed_dim, cfg.num_layers,
+             tcfg.batch_size) == (207, 12, 12, 32, 10, 32, 8, 1, 64),
+            "phase 17 is not at the reference defaults")
+    mean, std = 45.0, 15.0
+    rs = np.random.RandomState(0)
+    batches = []
+    for _ in range(2):
+        x = (requests(rs, 64, cfg) - mean) / std
+        y = rs.uniform(0.0, 70.0, (64, cfg.horizon, cfg.num_nodes, 1))
+        y[rs.rand(*y.shape) < 0.02] = 0.0  # missing: MaskMAE masks them
+        yc = rs.uniform(0.0, 1.0, (64, cfg.horizon, cfg.num_nodes, 1))
+        batches.append(tuple(torch.tensor(a, dtype=torch.float32, device=dev)
+                             for a in (x, y, yc)))
+    req = requests(rs, 64, cfg)
+    out = {}
+    for decoder in ("stepwise", "sequence"):
+        c = dataclasses.replace(cfg, decoder_type=decoder)
+        model = MegaCRNx(c, generator=torch.Generator().manual_seed(0),
+                         device=dev)
+        step = make_megacrnx_train_step(
+            model, tcfg, torch.optim.Adam(model.parameters(), lr=tcfg.lr),
+            mean, std)
+        pred = MegaCRNxPredictor(model, c, mean, std, 64, device=dev)
+        res = measure_family(
+            f"megacrnx_{decoder}", lambda i: step(*batches[i % 2])[0], sp,
+            se, serve=lambda: chunk_ms(pred, req))
+        require(sum(res["launches"].values()) + sum(
+            res["serve_launches"].values()) == 0,
+            f"megacrnx_{decoder} launched an SpMM kernel: {res}")
+        out[f"megacrnx_{decoder}"] = res
+        del model, step, pred
+
+    small = MegaCRNxConfig(num_nodes=30, horizon=3, seq_len=4, rnn_units=8,
+                           mem_num=4, mem_dim=8)
+    model = MegaCRNx(small, generator=torch.Generator().manual_seed(2),
+                     device="cpu")
+    x = requests(rs, 5, small)
+    yc = rs.uniform(0.0, 1.0, (5, 3, 30, 1)).astype(np.float32)
+    want = MegaCRNxPredictor(model, small, 50.0, 10.0, 8,
+                             device="cpu").predict(x, yc)
+    got = MegaCRNxPredictor(copy.deepcopy(model), small, 50.0, 10.0, 8,
+                            device=dev).predict(x, yc)
+    require(got.shape == (5, 3, 30, 1) and np.isfinite(got).all(),
+            "small MegaCRNx: bad forecast")
+    out["small_card_vs_cpu_max_abs_err"] = close(got, want, 10.0,
+                                                  "small MegaCRNx card vs CPU")
+    print(f"small MegaCRNx: card vs CPU on the same weights, max abs err "
+          f"{out['small_card_vs_cpu_max_abs_err']:.3e}")
+
+    save = os.path.join(d, "cli_megacrnx")
+    result, out["cli"] = check_family_cli(
+        "cli_megacrnx", sp, se, cli.main,
+        ["--dataset", "SYNTH", "--num_nodes", "207", "--epoch", "2",
+         "--synth_steps", "2000", "--save_dir", save], save,
+        ARTIFACTS + ("src_snapshot",))
+    m = result["test_metrics"]
+    require(result["epochs_run"] == 2 and all(
+        np.isfinite(m[k]) for k in ("mse", "rmse", "mae", "mape", "loss"))
+        and np.isfinite(m["per_step"]).all(),
+        f"cli_megacrnx: test metrics {m}")
+    return out
+
+
+GTS_ARTIFACTS = (".npz", ".npz.bn", "_logging.txt", "_epochlog.txt",
+                 "metrics.jsonl", "src_snapshot")
+
+
+def phase_gts(sp, se, d, dev):
+    """Phase 18: GTS at the METR-LA width (N=207, units 64, diffusion 3,
+    embedding 100, batch 64), its training series from the CLI with
+    --synth_steps 34272 (METR-LA's length: 0.7 x 34272 -> 23990 steps,
+    dim_fc 383,552): 5 train steps with the curriculum and the Gumbel noise
+    on, the graph learner's share, the sampled graphs' edges, a served
+    chunk; a small model on the card against the CPU, noise off; the CLI
+    for 1 epoch at that width."""
+    from megacrn_tpu_torch.cli import traintest_gts as cli
+    from megacrn_tpu_torch.config import GTSConfig
+    from megacrn_tpu_torch.data.synthetic import synthetic_speed_series
+    from megacrn_tpu_torch.models.gts import GTS
+    from megacrn_tpu_torch.serve import GTSPredictor
+    from megacrn_tpu_torch.train.gts_loop import (make_gts_loss_fn,
+                                                  make_gts_train_step)
+
+    require(not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    flags = ["--dataset", "SYNTH", "--synth_steps", "34272", "--seed", "0"]
+    args = cli.build_parser().parse_args(flags)
+    t0 = time.perf_counter()
+    values, _ = synthetic_speed_series(args.synth_steps, args.num_nodes)
+    feas, prior = cli.train_feas_and_prior(values, args.train_frac,
+                                           args.knn_k)
+    series_s = time.perf_counter() - t0
+    cfg, tcfg = cli.configs_from_args(args, feas.shape[0])
+    require((cfg.num_nodes, cfg.rnn_units, cfg.max_diffusion_step,
+             cfg.embedding_dim, cfg.train_series_len, cfg.dim_fc,
+             tcfg.batch_size) == (207, 64, 3, 100, 23990, 383552, 64),
+            "phase 18 is not at the METR-LA width")
+    t0 = time.perf_counter()
+    model = GTS(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    build_s = time.perf_counter() - t0
+    feas_d = torch.tensor(feas, device=dev)
+    prior_d = torch.tensor(prior, device=dev)
+    mean, std = 45.0, 15.0
+    rs = np.random.RandomState(1)
+
+    def windows(b):
+        x = np.concatenate([requests(rs, b, cfg), rs.uniform(
+            0.0, 1.0, (b, cfg.seq_len, cfg.num_nodes, 1))], -1)
+        return x.astype(np.float32)
+
+    batches = []
+    for _ in range(2):
+        x = windows(64)
+        x[..., 0] = (x[..., 0] - mean) / std
+        y = (rs.uniform(0.0, 70.0, (64, cfg.horizon, cfg.num_nodes, 1))
+             - mean) / std
+        batches.append(tuple(torch.tensor(a, dtype=torch.float32, device=dev)
+                             for a in (x, y)))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    step = make_gts_train_step(
+        model, tcfg, torch.optim.Adam(model.parameters(), lr=tcfg.lr,
+                                      eps=tcfg.epsilon), gen, mean, std,
+        feas_d, prior_d)
+    require(cfg.use_curriculum_learning, "curriculum learning is off")
+    bs0 = half_threshold(cfg)
+    out = {"gts": measure_family(
+        "gts", lambda i: step(*batches[i % 2], bs0 + i), sp, se)}
+    res = out["gts"]
+    require(sum(res["launches"].values()) == 0,
+            f"gts launched an SpMM kernel: {res['launches']}")
+    with torch.no_grad():
+        res["graph_learner_fwd_ms"] = host_ms(
+            lambda: model.sample_graph(feas_d, gen, training=False))
+        res["forward_ms"] = host_ms(lambda: model(
+            batches[0][0], feas_d, generator=gen, training=False))
+        noisy = int(model.sample_graph(feas_d, gen, training=False)[0].sum())
+        argmax = int(model.sample_graph(feas_d, None, training=False)[0]
+                     .sum())
+    res.update(series_s=series_s, model_build_s=build_s, edges_sampled=noisy,
+               edges_argmax=argmax, edges_knn_prior=int(prior.sum()))
+    req = windows(64)
+    t0 = time.perf_counter()
+    pred = GTSPredictor(model, None, cfg, feas, mean, std, 64, device=dev)
+    torch.cuda.synchronize()
+    res["predictor_graph_s"] = time.perf_counter() - t0
+    reset_launches(sp.spmm_coo, se.spmm)  # --- serving, counted ---
+    res["chunk_ms"] = chunk_ms(pred, req)
+    res["serve_launches"] = read_launches(sp.spmm_coo, se.spmm)
+    require(sum(res["serve_launches"].values()) == 0,
+            "GTS serving launched an SpMM kernel")
+    require(pred.adj.sum().item() == argmax, "the predictor's graph is not "
+                                             "the argmax graph")
+    print(f"gts: the graph learner's forward {res['graph_learner_fwd_ms']:.3f}"
+          f" ms of a {res['forward_ms']:.3f} ms forward (no grad); sampled "
+          f"graph {noisy} edges with the Gumbel noise, {argmax} argmax (the "
+          f"predictor's), kNN prior {res['edges_knn_prior']}; served chunk "
+          f"{res['chunk_ms']:.3f} ms; series and prior {series_s:.2f} s, "
+          f"model build {build_s:.2f} s on the host")
+    del model, step, pred, batches, feas_d, prior_d
+
+    small = GTSConfig(num_nodes=20, horizon=3, seq_len=4, rnn_units=8,
+                      max_diffusion_step=2, embedding_dim=16,
+                      train_series_len=100, knn_k=3,
+                      use_curriculum_learning=False)
+    s_feas = rs.randn(100, 20).astype(np.float32)
+    s_prior = cli.train_feas_and_prior(s_feas, 1.0, 3)[1]
+    cpu_model = GTS(small, generator=torch.Generator().manual_seed(3),
+                    device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    x = windows(5)[:, :4, :20]
+    want = GTSPredictor(copy.deepcopy(cpu_model), None, small, s_feas, 50.0,
+                        10.0, 8, device="cpu").predict(x)
+    got = GTSPredictor(copy.deepcopy(card_model), None, small, s_feas, 50.0,
+                       10.0, 8, device=dev).predict(x)
+    out["small_card_vs_cpu_max_abs_err"] = close(got, want, 10.0,
+                                                  "small GTS card vs CPU")
+    xb = torch.tensor(x) / 10.0
+    yb = torch.tensor(rs.randn(5, 3, 20, 1).astype(np.float32))
+    grads = []
+    for m, where in ((card_model, dev), (cpu_model, torch.device("cpu"))):
+        loss = make_gts_loss_fn(
+            m, 50.0, 10.0, torch.tensor(s_feas, device=where),
+            torch.tensor(s_prior, device=where), gumbel_noise=False)(
+            xb.to(where), yb.to(where), 0, None)
+        loss.backward()
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+        out.setdefault("small_losses", []).append(loss.item())
+    array, elem, err, limit, ratio = worst_element(*grads)
+    l_card, l_cpu = out["small_losses"]
+    require(ratio <= 1.0 and abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+            f"small GTS train step, card vs CPU: loss {l_card} vs {l_cpu}; "
+            f"{array}{list(elem)} |got-want| {err:.3e} over its limit "
+            f"{limit:.3e}")
+    out["small_grad_err_over_limit"] = ratio
+    print(f"small GTS: card vs CPU on the same weights, noise off: served "
+          f"max abs err {out['small_card_vs_cpu_max_abs_err']:.3e}; a "
+          f"train-mode step's loss {l_card:.8f} vs {l_cpu:.8f}, worst grad "
+          f"{array}{list(elem)} |err| {err:.3e} = {ratio:.3f} of its limit "
+          f"(rtol {GRAD_TOL[0]:g}, atol {GRAD_TOL[1]:g}*max|g|)")
+
+    save = os.path.join(d, "cli_gts")
+    result, out["cli"] = check_family_cli(
+        "cli_gts", sp, se, cli.main,
+        flags + ["--epochs", "1", "--save_dir", save], save, GTS_ARTIFACTS)
+    m = result["test_metrics"]
+    require(all(np.isfinite(v) for v in m.values()),
+            f"cli_gts: test metrics {m}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAIL: torch.cuda.is_available() is "
@@ -1742,6 +2121,9 @@ def main():
         remat = phase_remat(sp, se, cfg, tcfg, stacked, dev)
         cli = phase_cli_new_flags(sp, se, d,
                                   os.path.join(d, "expy-tky_adj01.npy"))
+        # The two other model families.
+        megacrnx = phase_megacrnx(sp, se, d, dev)
+        gts = phase_gts(sp, se, d, dev)
     # Each path's counts as read just after it (measured, zeros included).
     by_path = {"serving_3_requests": serving,
                "train_stacked_coo_5_steps": train["stacked_coo"]["launches"],
@@ -1757,6 +2139,13 @@ def main():
         by_path[f"train_{name}_{steps}_steps"] = res["launches"]
     for name, res in cli.items():
         by_path[f"{name}_1_epoch"] = res["launches"]
+    for name in ("megacrnx_stepwise", "megacrnx_sequence"):
+        by_path[f"train_{name}_5_steps"] = megacrnx[name]["launches"]
+        by_path[f"serve_{name}_chunk"] = megacrnx[name]["serve_launches"]
+    by_path["cli_megacrnx_synth_2_epochs"] = megacrnx["cli"]["launches"]
+    by_path["train_gts_5_steps"] = gts["gts"]["launches"]
+    by_path["serve_gts_chunk"] = gts["gts"]["serve_launches"]
+    by_path["cli_gts_synth_1_epoch"] = gts["cli"]["launches"]
     for entry, kind in ((coo, "stacked_coo"), (ell, "block_ell")):
         res = train[kind]
         name = entry["name"]
@@ -1794,6 +2183,23 @@ def main():
         row["launches_per_step"] = (row["applications_per_step"]
                                     * row["device_kernels"])
     print(json.dumps({"xla_paths": node_ell["ops"] + smeta["ops"]}))
+    # The two families' paths (plain PyTorch, no hand-written kernel), and
+    # phase 7's gradient holds.
+    fam_keys = keys + ("graph_learner_fwd_ms", "forward_ms", "edges_sampled",
+                       "edges_argmax", "edges_knn_prior", "series_s",
+                       "model_build_s", "predictor_graph_s")
+    print(json.dumps({"families": {
+        name: {k: res[k] for k in fam_keys if k in res}
+        for name, res in (("megacrnx_stepwise", megacrnx["megacrnx_stepwise"]),
+                          ("megacrnx_sequence", megacrnx["megacrnx_sequence"]),
+                          ("gts", gts["gts"]))},
+        "cli_megacrnx_2_epochs": megacrnx["cli"],
+        "cli_gts_1_epoch": gts["cli"],
+        "small_card_vs_cpu_max_abs_err": {
+            "megacrnx": megacrnx["small_card_vs_cpu_max_abs_err"],
+            "gts": gts["small_card_vs_cpu_max_abs_err"]},
+        "small_gts_grad_err_over_limit": gts["small_grad_err_over_limit"],
+        "grad_holds": {kind: train[kind]["holds"] for kind in train}}))
     print(json.dumps({"kernels": [coo, ell]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

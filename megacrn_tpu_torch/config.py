@@ -2,8 +2,9 @@
 ``megacrn_tpu/config.py``).
 
 The port keeps its own copy: it imports nothing of the JAX package. The
-GTS config and the mesh config come with the slices that use them
-(``cli/traintest.py`` refuses their flags).
+mesh config comes with the slice that uses it (``cli/traintest.py``
+refuses its flags). MegaCRNx's config lives with its model
+(``models/megacrnx.py``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -63,6 +64,42 @@ class MegaCRNConfig:
     @property
     def num_supports(self) -> int:
         return 2  # meta-graph always yields [g1, g2] (model/MegaCRN.py:171-173)
+
+
+@dataclasses.dataclass(frozen=True)
+class GTSConfig:
+    """GTS baseline model (graph structure learning, ``model/GTS.py``).
+
+    Defaults follow the reference harness (``model/traintest_GTS.py:228-260``
+    and the YAML block at ``model/GTS.py:485-527``). ``train_series_len`` is
+    the length of the training series fed to the Conv1d feature extractor;
+    it determines dim_fc = 16 * (train_series_len - 18).
+    """
+
+    num_nodes: int = 207
+    input_dim: int = 2  # speed + time-of-day both enter the encoder
+    output_dim: int = 1
+    horizon: int = 12
+    seq_len: int = 12
+    rnn_units: int = 64
+    num_layers: int = 1
+    max_diffusion_step: int = 3
+    embedding_dim: int = 100
+    temperature: float = 0.5
+    cl_decay_steps: int = 2000
+    use_curriculum_learning: bool = True
+    train_series_len: int = 23990
+    knn_k: int = 10
+    # Matmul/conv-input dtype: "float32" | "bfloat16" (extractor convs, fc
+    # and the DCGRU gconvs narrow; BatchNorm, the edge logits, the softmax
+    # and the sampling stay f32) | "float64" (CPU parity control).
+    compute_dtype: str = "float32"
+
+    @property
+    def dim_fc(self) -> int:
+        # Two VALID k=10 convs shrink L by 18; 16 channels out
+        # (model/GTS.py:350-353,423-432).
+        return 16 * (self.train_series_len - 18)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -132,6 +132,45 @@ def generate_seq2seq_dataset(
     return window_series(data, x_offsets, y_offsets)
 
 
+def ratio_windows(
+    values: np.ndarray,
+    values_time: Optional[np.ndarray],
+    his_len: int,
+    seq_len: int,
+    trainval_ratio: float,
+    mode: str,
+) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """MegaCRNx ratio-based windowing, getXSYS/getXSYSTIME parity
+    (model_futurework/traintest_MegaCRNx.py:21-55).
+
+    ``values``/``values_time``: (T, N). Train windows anchor at
+    ``i in [0, train_num - seq_len - his_len + 1)``; test windows at
+    ``i in [train_num - his_len, T - seq_len - his_len + 1)`` where
+    ``train_num = int(T * trainval_ratio)``. x = values[i : i+his_len],
+    y = values[i+his_len : i+his_len+seq_len], and the covariate is the
+    TIME channel of the target window. Returns (XS, YS, YCOV) each
+    (S, L, N, 1) float32; YCOV is None when ``values_time`` is None.
+    """
+    t_total = values.shape[0]
+    train_num = int(t_total * trainval_ratio)
+    if mode == "train":
+        anchors = np.arange(0, train_num - seq_len - his_len + 1)
+    elif mode == "test":
+        anchors = np.arange(train_num - his_len,
+                            t_total - seq_len - his_len + 1)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    x_offsets = np.arange(0, his_len)
+    y_offsets = np.arange(his_len, his_len + seq_len)
+    xs = values[anchors[:, None] + x_offsets[None, :]][..., None]
+    ys = values[anchors[:, None] + y_offsets[None, :]][..., None]
+    ycov = None
+    if values_time is not None:
+        ycov = values_time[anchors[:, None] + y_offsets[None, :]][..., None]
+    return (xs.astype(np.float32), ys.astype(np.float32),
+            None if ycov is None else ycov.astype(np.float32))
+
+
 def chronological_split(
     x: np.ndarray, y: np.ndarray, train_frac: float = 0.7, test_frac: float = 0.2
 ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:

@@ -40,7 +40,7 @@ from megacrn_tpu_torch.kernels.spmm_coo import StackedRoadPack
 from megacrn_tpu_torch.kernels.spmm_ell_node import (BucketedStackedNodeELL,
                                                      StackedNodeELL,
                                                      cheb_aggregate_node_ell)
-from megacrn_tpu_torch.nn.init import torch_linear_bias, torch_linear_weight
+from megacrn_tpu_torch.nn.init import torch_linear
 from megacrn_tpu_torch.nn.memory import memory_init, query_memory
 from megacrn_tpu_torch.nn.seq import (decoder_init, encoder_init, init_hidden,
                                       stack_step)
@@ -130,14 +130,8 @@ class MegaCRN(nn.Module):
                                     dtype)
         # proj = nn.Sequential(nn.Linear(decoder_dim, output_dim))
         # (model/MegaCRN.py:144), drawn from `g`, not the global RNG.
-        proj = nn.utils.skip_init(nn.Linear, cfg.decoder_dim, cfg.output_dim,
-                                  dtype=dtype)
-        with torch.no_grad():
-            proj.weight.copy_(torch_linear_weight(
-                (cfg.decoder_dim, cfg.output_dim), g, dtype).T)
-            proj.bias.copy_(torch_linear_bias(
-                cfg.decoder_dim, (cfg.output_dim,), g, dtype))
-        self.proj = nn.Sequential(proj)
+        self.proj = nn.Sequential(torch_linear(cfg.decoder_dim,
+                                               cfg.output_dim, g, dtype))
         self.to(device)
 
     def forward(self, x: torch.Tensor, y_cov: torch.Tensor,

@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 
 
 def xavier_normal(shape, generator: torch.Generator, dtype=torch.float32,
@@ -44,6 +45,20 @@ def torch_linear_bias(fan_in: int, shape, generator: torch.Generator,
                       dtype=torch.float32) -> torch.Tensor:
     bound = 1.0 / math.sqrt(fan_in)
     return _uniform(shape, -bound, bound, generator, dtype)
+
+
+def torch_linear(dim_in: int, dim_out: int, generator: torch.Generator,
+                 dtype=torch.float32) -> nn.Linear:
+    """An ``nn.Linear`` with torch's default init drawn from ``generator``
+    (weight first, then bias; the weight drawn input-major, as the JAX
+    package draws it, and stored transposed)."""
+    lin = nn.utils.skip_init(nn.Linear, dim_in, dim_out, dtype=dtype)
+    with torch.no_grad():
+        lin.weight.copy_(torch_linear_weight((dim_in, dim_out), generator,
+                                             dtype).T)
+        lin.bias.copy_(torch_linear_bias(dim_in, (dim_out,), generator,
+                                         dtype))
+    return lin
 
 
 def _uniform(shape, lo, hi, generator, dtype):

@@ -3,10 +3,15 @@
 * ``Predictor``: stateless batch inference around a MegaCRN, raw speed
   windows in, raw-scale forecasts out. Requests are chunked and padded to a
   fixed batch (``max_batch``).
+* ``GTSPredictor``: the same around a trained GTS; its graph is sampled
+  once, when it is built (argmax, no Gumbel noise, BatchNorm in eval mode).
+* ``MegaCRNxPredictor``: the same around a trained MegaCRNx.
 * ``StreamingForecaster``: keeps a rolling window and emits a forecast every
-  time a new observation step arrives once the window is warm.
+  time a new observation step arrives once the window is warm; it drives
+  any of the three predictors.
 
-``GTSPredictor`` and ``MegaCRNxPredictor`` come with their model families.
+All three share ``_run_batched``, and each loads an ``.npz`` checkpoint
+that either package wrote (``from_checkpoint``).
 """
 from __future__ import annotations
 
@@ -18,9 +23,13 @@ from torch import nn
 
 from megacrn_tpu_torch import resolve_device
 from megacrn_tpu_torch.config import MegaCRNConfig
-from megacrn_tpu_torch.interop import params_from_flat
+from megacrn_tpu_torch.interop import (gts_params_from_flat,
+                                       megacrnx_params_from_flat,
+                                       params_from_flat)
+from megacrn_tpu_torch.models.gts import GTS
 from megacrn_tpu_torch.models.megacrn import (DTYPES, MegaCRN,
                                               road_supports_to)
+from megacrn_tpu_torch.models.megacrnx import MegaCRNx
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 
 
@@ -79,9 +88,8 @@ class Predictor:
 
     @torch.inference_mode()
     def _forward(self, x: np.ndarray, y_cov: np.ndarray) -> np.ndarray:
-        x = torch.tensor(x, device=self.device)  # a copy: edited in place
+        x = _normalised(x, self.mean, self.std, self.device)
         y_cov = torch.tensor(y_cov, device=self.device)
-        x[..., 0] = (x[..., 0] - self.mean) / self.std
         out = self.model(x[..., :self.cfg.input_dim], y_cov,
                          road_supports=self.road_supports)
         return inverse_transform(out.output, self.std,
@@ -118,6 +126,134 @@ def _run_batched(fwd, max_batch: int, arrays) -> np.ndarray:
     return np.concatenate(outs, axis=0)
 
 
+def _normalised(x: np.ndarray, mean: float, std: float,
+                device: torch.device) -> torch.Tensor:
+    """Raw windows -> a tensor on ``device`` with channel 0 normalised."""
+    x = torch.tensor(x, device=device)  # a copy: edited in place
+    x[..., 0] = (x[..., 0] - mean) / std
+    return x
+
+
+class GTSPredictor:
+    """Batch forecaster around a trained GTS (the second family).
+
+    The graph learner reads the NORMALISED training series (``node_feas``,
+    model/GTS.py:423-434), deployed state beside the weights and the
+    BatchNorm stats. The graph depends only on those, never on a request,
+    so it is sampled once here: argmax, no Gumbel noise, BatchNorm in eval
+    mode (the reference eval path, model/traintest_GTS.py:104-120).
+
+    Args:
+      params_or_model: a ``GTS`` module (moved to ``device`` in place), or
+        its weights in the JAX package's flat naming.
+      bn_state: the BatchNorm state in the flat naming (``bn1/mean``, ...)
+        with flat weights; None with a module, which holds its own.
+      node_feas: (T_train, N) normalised training series.
+    """
+
+    def __init__(self, params_or_model, bn_state, cfg, node_feas,
+                 scaler_mean: float = 0.0, scaler_std: float = 1.0,
+                 max_batch: int = 64, device=None):
+        self.device = resolve_device(device)
+        if isinstance(params_or_model, nn.Module):
+            model = params_or_model.to(self.device)
+        else:
+            model = GTS(cfg, device=self.device)
+            model.load_state_dict(gts_params_from_flat(params_or_model,
+                                                       bn_state, cfg))
+        self.model = model.eval()
+        self.cfg = cfg
+        self.mean, self.std = float(scaler_mean), float(scaler_std)
+        self.max_batch = max_batch
+        with torch.inference_mode():
+            self.graph = model.sample_graph(
+                torch.as_tensor(np.asarray(node_feas, np.float32),
+                                device=self.device), None, training=False)
+        self.adj = self.graph[0]
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg, node_feas, max_batch: int = 64,
+                        device=None) -> "GTSPredictor":
+        """Load the (params, params.bn) checkpoint pair written by either
+        package's ``train.gts_loop.fit_gts``."""
+        from megacrn_tpu_torch.train import checkpoint as ckpt
+
+        params, _, meta = ckpt.load_checkpoint(path)
+        bn_state, _, _ = ckpt.load_checkpoint(path + ".bn")
+        return cls(params, bn_state, cfg, node_feas,
+                   meta.get("scaler_mean", 0.0), meta.get("scaler_std", 1.0),
+                   max_batch, device=device)
+
+    @torch.inference_mode()
+    def _forward(self, x: np.ndarray) -> np.ndarray:
+        x = _normalised(x, self.mean, self.std, self.device)
+        out = self.model(x[..., :self.cfg.input_dim], None, training=False,
+                         gumbel_noise=False, graph=self.graph)
+        return inverse_transform(out.output, self.std,
+                                 self.mean).cpu().numpy()
+
+    def predict(self, x: np.ndarray, y_cov=None) -> np.ndarray:
+        """x: (B, seq_len, N, >=input_dim) RAW windows, channel 0 = speed.
+        ``y_cov`` is accepted for ``StreamingForecaster`` and ignored: GTS
+        has no decoder covariates (model/GTS.py:387-410)."""
+        del y_cov
+        return _run_batched(self._forward, self.max_batch,
+                            (np.asarray(x, np.float32),))
+
+
+class MegaCRNxPredictor:
+    """Batch forecaster around a trained MegaCRNx (the third family): the
+    deterministic forward (no scheduled sampling), raw-scale output per its
+    protocol (model_futurework/traintest_MegaCRNx.py: normalised x,
+    raw-scale targets). ``params_or_model``: a ``MegaCRNx`` module or its
+    weights in the JAX package's flat naming."""
+
+    def __init__(self, params_or_model, cfg, scaler_mean: float = 0.0,
+                 scaler_std: float = 1.0, max_batch: int = 64, device=None):
+        self.device = resolve_device(device)
+        if isinstance(params_or_model, nn.Module):
+            model = params_or_model.to(self.device)
+        else:
+            model = MegaCRNx(cfg, device=self.device)
+            model.load_state_dict(megacrnx_params_from_flat(params_or_model,
+                                                            cfg))
+        self.model = model.eval()
+        self.cfg = cfg
+        self.mean, self.std = float(scaler_mean), float(scaler_std)
+        self.max_batch = max_batch
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg, max_batch: int = 64,
+                        device=None) -> "MegaCRNxPredictor":
+        """Load an ``.npz`` checkpoint written by either package's
+        ``fit_megacrnx``; the scaler stats come from its metadata (the JAX
+        harness writes none: then 0 and 1)."""
+        from megacrn_tpu_torch.train import checkpoint as ckpt
+
+        flat, _, meta = ckpt.load_checkpoint(path)
+        return cls(flat, cfg, meta.get("scaler_mean", 0.0),
+                   meta.get("scaler_std", 1.0), max_batch, device=device)
+
+    @torch.inference_mode()
+    def _forward(self, x: np.ndarray, y_cov: np.ndarray) -> np.ndarray:
+        x = _normalised(x, self.mean, self.std, self.device)
+        out = self.model(x[..., :self.cfg.input_dim],
+                         torch.as_tensor(y_cov, device=self.device))
+        return inverse_transform(out.output, self.std,
+                                 self.mean).cpu().numpy()
+
+    def predict(self, x: np.ndarray,
+                y_cov: Optional[np.ndarray] = None) -> np.ndarray:
+        """As ``Predictor.predict``."""
+        cfg = self.cfg
+        x = np.asarray(x, np.float32)
+        if y_cov is None:
+            y_cov = np.zeros((x.shape[0], cfg.horizon, cfg.num_nodes,
+                              cfg.ycov_dim), np.float32)
+        return _run_batched(self._forward, self.max_batch,
+                            (x, np.asarray(y_cov, np.float32)))
+
+
 class StreamingForecaster:
     """Online serving: push one observation step at a time, get a forecast
     once the window is warm.
@@ -126,7 +262,7 @@ class StreamingForecaster:
     forecast or None while warming up.
     """
 
-    def __init__(self, predictor: Predictor, cov_fn=None):
+    def __init__(self, predictor, cov_fn=None):
         self.predictor = predictor
         self.cfg = predictor.cfg
         self._window: list = []

@@ -56,7 +56,19 @@ def test_port_imports_no_jax_no_jax_package_and_no_pandas():
                 # the graph backends slice
                 "megacrn_tpu_torch.kernels.spmm_ell_node",
                 "megacrn_tpu_torch.kernels.sparse_graph_node",
-                "megacrn_tpu_torch.kernels.sparse_graph"):
+                "megacrn_tpu_torch.kernels.sparse_graph",
+                # the two other model families: MegaCRNx and GTS
+                "megacrn_tpu_torch.data.hdf5",
+                "megacrn_tpu_torch.data.graph_prior",
+                "megacrn_tpu_torch.nn.norm",
+                "megacrn_tpu_torch.nn.dcgru",
+                "megacrn_tpu_torch.models.megacrnx",
+                "megacrn_tpu_torch.models.gts",
+                "megacrn_tpu_torch.interop",
+                "megacrn_tpu_torch.train.megacrnx_loop",
+                "megacrn_tpu_torch.train.gts_loop",
+                "megacrn_tpu_torch.cli.traintest_megacrnx",
+                "megacrn_tpu_torch.cli.traintest_gts"):
         assert mod in res["modules"]
 
 
