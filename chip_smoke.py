@@ -89,10 +89,34 @@ counts must read 0 on every path):
     (served, and a train-mode step's loss and gradients), noise off;
     ``cli.traintest_gts`` for 1 epoch at that width.
 
+The mesh (``megacrn_tpu_torch/parallel``), its ranks spawned on the card
+through ``parallel.launch`` over gloo (NCCL refuses two ranks on one GPU;
+every collective of a CUDA tensor stages through pinned host memory), each
+mesh step held against the single-device step on the card (losses rtol
+1e-4, every state array within GRAD_TOL's form relative to its max|p|):
+
+19. Two spawns. Two ranks, a (2, 1) mesh: (a) data parallel at the
+    EXPY-TKY width through the block-COO kernel, 5 steps, its launches on
+    each rank equal to the single-device step's; (c) MegaCRNx and GTS data
+    parallel at the METR-LA width, 3 steps each (GTS with the Gumbel noise
+    on, twice: in f64 against the unchanged whole-batch single-device
+    step, and in f32 against the single-device step that sums the two half
+    batches' shares as the mesh does, since its extractor's f32 gradients
+    move by more than GRAD_TOL between summation orders; the f32
+    whole-batch step's distance is printed). Six ranks, a (2, 3) mesh:
+    (b) the node partition at the METR-LA width (69 nodes a rank), 3
+    steps each on block-ELL packs (the kernel's launches non-zero on every
+    rank), node-ELL flat and bucketed, dense and dense_ring; (d) one epoch
+    of ``cli.traintest`` with ``road_sparse`` and with ``dense_ring`` on
+    that mesh, inside the group, their test metrics read from rank 0's
+    run dir. Each step's ms and peak memory per rank, and the collectives
+    and their host staging, printed: correctness only (the ranks
+    time-share the card).
+
 The last lines: a JSON line of phases 11-16's paths, one of their ops,
 one of the two families' paths (with phase 7's gradient holds), one of the
-kernels, the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+mesh, one of the kernels, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2053,6 +2077,465 @@ def phase_gts(sp, se, d, dev):
     return out
 
 
+# --- The mesh (phase 19): parallel/ on torch.distributed, its ranks spawned
+# on the one card by parallel.launch. Several ranks share one GPU only over
+# gloo (NCCL refuses a duplicate GPU), and every collective of a CUDA tensor
+# stages through pinned host memory. Correctness only: the ranks time-share
+# the card, so no time here says anything about multi-GPU speed.
+
+# The updated parameters of a mesh run against the single-device run, per
+# array: rtol and atol relative to max|p| (GRAD_TOL's numbers).
+MESH_TOL = GRAD_TOL
+
+
+def mesh_batches(cfg, batch, n, seed, kind):
+    """n numpy batches of a family, from a seeded RandomState with 2% exact
+    zeros: MegaCRN (x, y, y_cov) normalised; MegaCRNx (x normalised, y raw,
+    y_cov); GTS (x with its time channel, y) normalised."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x = (requests(rs, batch, cfg) - 45.0) / 15.0
+        y = rs.uniform(0.0, 70.0, (batch, cfg.horizon, cfg.num_nodes, 1))
+        if kind == "megacrn":
+            y = (y - 45.0) / 15.0
+        y[rs.rand(*y.shape) < 0.02] = 0.0
+        yc = rs.uniform(0.0, 1.0, (batch, cfg.horizon, cfg.num_nodes, 1))
+        if kind == "gts":
+            x = np.concatenate([x, rs.uniform(0.0, 1.0, x.shape)], -1)
+            out.append(tuple(a.astype(np.float32)
+                             for a in (x, (y - 45.0) / 15.0)))
+        else:
+            out.append(tuple(a.astype(np.float32) for a in (x, y, yc)))
+    return out
+
+
+def _mesh_road(spec, cfg, mesh):
+    """The graph constant of a MegaCRN mesh spec: single-device, or cut for
+    the mesh's node axis."""
+    from megacrn_tpu_torch.data.synthetic import synthetic_road_adjacency
+    from megacrn_tpu_torch.kernels import spmm as se
+    from megacrn_tpu_torch.kernels import spmm_coo as sp
+    from megacrn_tpu_torch.kernels import spmm_ell_node as ell
+    from megacrn_tpu_torch.ops.graph import dual_random_walk_supports
+
+    road = spec.get("road")
+    if road is None:
+        return None
+    sups = list(dual_random_walk_supports(synthetic_road_adjacency(
+        cfg.num_nodes, avg_degree=8, seed=0)))
+    buckets = 1 if road == "node_ell_flat" else 4
+    node = mesh is not None and mesh.node > 1
+    if road == "coo":
+        return sp.build_stacked_road_pack(sups)
+    if road == "block_ell":
+        return (se.shard_road_packs(sups, mesh.node) if node
+                else se.build_road_ell_pairs(sups))
+    const = (ell.shard_node_ell(sups, mesh.node, max_buckets=buckets) if node
+             else ell.build_stacked_node_ell(sups, max_buckets=buckets))
+    want = ((ell.ShardedNodeELL, ell.StackedNodeELL) if buckets == 1 else
+            (ell.BucketedShardedNodeELL, ell.BucketedStackedNodeELL))
+    require(isinstance(const, want), f"{spec['name']}: {type(const)}")
+    return const
+
+
+def gts_setup(dev, init, dtype="float32"):
+    """(cfg, tcfg, model, node_feas, knn_prior) of GTS at the METR-LA width
+    (phase 18's: N=207, units 64, diffusion 3, embedding 100, the
+    23,990-step training series of --synth_steps 34272), computing in
+    ``dtype`` (the series and prior stay f32, as ``fit_gts`` keeps them)."""
+    import dataclasses
+
+    from megacrn_tpu_torch.cli import traintest_gts as cli
+    from megacrn_tpu_torch.data.synthetic import synthetic_speed_series
+    from megacrn_tpu_torch.models.gts import GTS
+
+    args = cli.build_parser().parse_args(
+        ["--dataset", "SYNTH", "--synth_steps", "34272", "--seed", "0"])
+    values, _ = synthetic_speed_series(args.synth_steps, args.num_nodes)
+    feas, prior = cli.train_feas_and_prior(values, args.train_frac,
+                                           args.knn_k)
+    cfg, tcfg = cli.configs_from_args(args, feas.shape[0])
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    model = GTS(cfg, generator=init, device=dev,
+                dtype=getattr(torch, dtype))
+    return (cfg, tcfg, model) + tuple(torch.tensor(a, device=dev)
+                                      for a in (feas, prior))
+
+
+def gts_halves_step(model, tcfg, opt, dev, feas, prior, noise, parts=2):
+    """The GTS train step as a data-parallel mesh of ``parts`` ranks
+    computes it, on one device: each equal batch slice's share of the one
+    objective (``parallel.api.make_gts_mesh_train_step``), each slice's
+    forward drawing the same Gumbel uniforms and coins from its own
+    generator and the running BatchNorm statistics updated once (as on each
+    rank), the shares' gradients summed; then the clip and Adam."""
+    from megacrn_tpu_torch.ops import losses
+    from megacrn_tpu_torch.ops.scaling import inverse_transform
+    from megacrn_tpu_torch.train.gts_loop import bce
+    from megacrn_tpu_torch.train.optim import clip_gradients
+
+    gens = [torch.Generator(device=dev).manual_seed(2) for _ in range(parts)]
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(x, y, batches_seen):
+        opt.zero_grad(set_to_none=True)
+        den = (inverse_transform(y, 15.0, 45.0) != 0).float().sum()
+        rows = x.shape[0] // parts
+        total, kept = 0.0, None
+        for i, gen in enumerate(gens):
+            part = slice(i * rows, (i + 1) * rows)
+            out = model(x[part], feas, labels=y[part],
+                        batches_seen=batches_seen, generator=gen,
+                        training=True, gumbel_noise=noise)
+            num, _ = losses.masked_mae_sums(
+                inverse_transform(out.output, 15.0, 45.0),
+                inverse_transform(y[part], 15.0, 45.0))
+            share = (num / den.clamp_min(1.0)
+                     + bce(out.adj_prob.reshape(-1), prior.reshape(-1))
+                     / parts)
+            share.backward()
+            total = total + share.detach()
+            # After the backward, which reads them: the running statistics
+            # as the first slice left them.
+            if kept is None:
+                kept = {k: v.clone() for k, v in model.named_buffers()}
+            else:
+                for k, v in model.named_buffers():
+                    v.copy_(kept[k])
+        clip_gradients(params, tcfg)
+        opt.step()
+        return total
+
+    return step
+
+
+def state_over_limit(got, want):
+    """(worst |got - want| / limit over the float state arrays, its array),
+    the limit MESH_TOL's per-array form."""
+    rtol, atol = MESH_TOL
+    worst, where = 0.0, None
+    for k, w in want.items():
+        if np.issubdtype(w.dtype, np.floating):
+            limit = rtol * np.abs(w) + atol * max(np.abs(w).max(), 1e-30)
+            ratio = float((np.abs(got[k] - w) / limit).max())
+            if where is None or ratio > worst:
+                worst, where = ratio, k
+    return worst, where
+
+
+def mesh_case(spec, dev, mesh=None):
+    """Build the spec's model from its seed and run its train steps, on one
+    device (``mesh=None``) or as this rank of ``mesh``, both kernels' counts
+    and the collectives' counts set to 0 just before the steps and read
+    just after. Returns the losses, the ms of each step (host clock to the
+    loss on the host), the peak device memory, the counts, the state after
+    the last step (numpy) and its digest."""
+    import hashlib
+
+    from megacrn_tpu_torch.kernels import spmm as se
+    from megacrn_tpu_torch.kernels import spmm_coo as sp
+    from megacrn_tpu_torch.parallel import api, comm
+    from megacrn_tpu_torch.parallel.mesh import shard_batch
+
+    kind = spec["kind"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    init = torch.Generator().manual_seed(spec.get("seed", 0))
+    if kind == "megacrn":
+        from megacrn_tpu_torch.config import (model_config_for,
+                                              train_config_for)
+        from megacrn_tpu_torch.models.megacrn import MegaCRN
+        from megacrn_tpu_torch.train.optim import make_optimizer
+        from megacrn_tpu_torch.train.steps import make_train_step
+
+        cfg = model_config_for(spec["preset"], graph_backend=spec["backend"])
+        tcfg = train_config_for(spec["preset"], **spec["train"])
+        model = MegaCRN(cfg, generator=init, device=dev)
+        opt = make_optimizer(model.parameters(), tcfg)
+        const = _mesh_road(spec, cfg, mesh)
+        first = half_threshold(cfg)  # coins of both kinds
+        if mesh is None:
+            step = make_train_step(model, tcfg, opt, gen,
+                                   road_supports=const)
+        elif spec.get("road") not in (None, "coo") and mesh.node > 1:
+            step = api.make_road_node_train_step(model, tcfg, opt, mesh,
+                                                 const, gen)
+        elif spec["backend"] == "dense_ring":
+            step = api.make_ring_train_step(model, tcfg, opt, mesh, gen)
+        elif spec["backend"] == "road_sparse":
+            step = api.make_shardmap_train_step(model, tcfg, opt, mesh, gen,
+                                                road_supports=const)
+        else:
+            step = api.make_sharded_train_step(model, tcfg, opt, mesh, gen)
+
+        def run(arrays, i):
+            return step(*arrays, first + i)
+    elif kind == "megacrnx":
+        from megacrn_tpu_torch.cli import traintest_megacrnx as cli
+        from megacrn_tpu_torch.models.megacrnx import MegaCRNx
+        from megacrn_tpu_torch.train.megacrnx_loop import \
+            make_megacrnx_train_step
+
+        cfg, tcfg = cli.configs_from_args(cli.build_parser().parse_args([]),
+                                          207)
+        model = MegaCRNx(cfg, generator=init, device=dev)
+        # Adam with eps 1e-3 for the hold: with the protocol's 1e-8 a first
+        # step moves each weight by about lr * sign(g), and a gradient
+        # within rounding of 0 could take either sign on the two paths.
+        opt = torch.optim.Adam(model.parameters(), lr=tcfg.lr, eps=1e-3)
+        step = (make_megacrnx_train_step(model, tcfg, opt, 45.0, 15.0)
+                if mesh is None else api.make_megacrnx_mesh_train_step(
+                    model, tcfg, opt, mesh, 45.0, 15.0))
+
+        def run(arrays, i):
+            return step(*arrays)[0]
+    else:
+        from megacrn_tpu_torch.train.gts_loop import make_gts_train_step
+
+        cfg, tcfg, model, feas_d, prior_d = gts_setup(
+            dev, init, spec.get("dtype", "float32"))
+        opt = torch.optim.Adam(model.parameters(), lr=tcfg.lr,
+                               eps=tcfg.epsilon)
+        noise = spec["noise"]
+        if mesh is not None:
+            step = api.make_gts_mesh_train_step(model, tcfg, opt, mesh, gen,
+                                                45.0, 15.0, feas_d, prior_d,
+                                                noise)
+        elif spec.get("reference") == "halves":
+            step = gts_halves_step(model, tcfg, opt, dev, feas_d, prior_d,
+                                   noise, spec["mesh"][0])
+        else:
+            step = make_gts_train_step(model, tcfg, opt, gen, 45.0, 15.0,
+                                       feas_d, prior_d, noise)
+        first = half_threshold(cfg)
+
+        def run(arrays, i):
+            return step(*arrays, first + i)
+    batches = mesh_batches(cfg, 64, 2, 0, kind)
+    if mesh is not None:
+        batches = [shard_batch(b, mesh, nodes=getattr(step, "shard_nodes",
+                                                      False))
+                   for b in batches]
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    batches = [tuple(torch.tensor(a, device=dev, dtype=dtype) for a in b)
+               for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(sp.spmm_coo, se.spmm)  # --- this path, counted ---
+    comm.reset_counts()
+    losses, ms = [], []
+    for i in range(spec["steps"]):
+        t0 = time.perf_counter()
+        losses.append(run(batches[i % 2], i).item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = read_launches(sp.spmm_coo, se.spmm)  # --- read just after ---
+    state = {k: v.detach().cpu().numpy()
+             for k, v in model.state_dict().items()}
+    digest = hashlib.sha256()
+    for k in sorted(state):
+        digest.update(k.encode() + state[k].tobytes())
+    return {"losses": losses, "ms": ms, "launches": launches,
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2**30,
+            "calls": dict(comm.calls), "staged": dict(comm.staged),
+            "state": state, "digest": digest.hexdigest()}
+
+
+def mesh_ranks(specs, out_dir):
+    """One spawned rank of the mesh phase: every spec on its mesh (a spec
+    with ``cli`` runs that CLI's main inside this group, counted); its
+    results go to ``out_dir/rank{r}.pkl`` (the state only from rank 0)."""
+    import importlib
+    import pickle
+
+    from megacrn_tpu_torch.kernels import spmm as se
+    from megacrn_tpu_torch.kernels import spmm_coo as sp
+    from megacrn_tpu_torch.parallel import comm
+    from megacrn_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = torch.distributed.get_rank()
+    results = {}
+    for spec in specs:
+        if "cli" in spec:
+            reset_launches(sp.spmm_coo, se.spmm)  # --- this path, counted ---
+            comm.reset_counts()
+            t0 = time.perf_counter()
+            importlib.import_module(spec["cli"]).main(spec["argv"])
+            torch.cuda.synchronize()
+            results[spec["name"]] = {
+                "launches": read_launches(sp.spmm_coo, se.spmm),
+                "wall_s": time.perf_counter() - t0,
+                "calls": dict(comm.calls), "staged": dict(comm.staged)}
+            continue
+        res = mesh_case(spec, dev, make_mesh(*spec["mesh"]))
+        if rank != 0:
+            del res["state"]
+        results[spec["name"]] = res
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+def hold_mesh(name, ranks, single, kernel=None):
+    """A mesh run's ranks against the single-device run: the same losses
+    and state on every rank; losses (rtol) and each state array (rtol,
+    atol relative to its max|p|) within MESH_TOL of the single-device run;
+    ``kernel``'s count non-zero on every rank. Returns the numbers."""
+    r0 = ranks[0][name]
+    for r, res in enumerate(ranks):
+        require(res[name]["losses"] == r0["losses"]
+                and res[name]["digest"] == r0["digest"],
+                f"mesh {name}: rank {r} differs from rank 0")
+    np.testing.assert_allclose(r0["losses"], single["losses"],
+                               rtol=MESH_TOL[0],
+                               err_msg=f"mesh {name}: losses")
+    for k, want in single["state"].items():
+        if not np.issubdtype(want.dtype, np.floating):
+            require(np.array_equal(r0["state"][k], want),
+                    f"mesh {name}: {k}")
+    worst, where = state_over_limit(r0["state"], single["state"])
+    require(worst <= 1.0, f"mesh {name}: {where} off by {worst:.3f} of its "
+                          f"limit")
+    counts = [res[name]["launches"] for res in ranks]
+    if kernel is not None:
+        require(all(c[kernel] > 0 for c in counts),
+                f"mesh {name}: a rank launched no {kernel}: {counts}")
+    out = {"losses": r0["losses"], "single_losses": single["losses"],
+           "worst_over_limit": worst, "worst_array": where,
+           "launches_per_rank": counts,
+           "single_launches": single["launches"],
+           "ms_per_step_per_rank": [float(np.median(res[name]["ms"]))
+                                    for res in ranks],
+           "peak_GiB_per_rank": [res[name]["peak_GiB"] for res in ranks],
+           "single_ms": float(np.median(single["ms"])),
+           "calls_rank0": r0["calls"], "staged_rank0": r0["staged"]}
+    print(f"mesh {name}: losses {[round(v, 6) for v in r0['losses']]} vs "
+          f"single {[round(v, 6) for v in single['losses']]}, worst state "
+          f"element {worst:.4g} of its limit; ms a step per rank "
+          f"{[round(v, 1) for v in out['ms_per_step_per_rank']]} (single "
+          f"{out['single_ms']:.1f}); peak GiB per rank "
+          f"{[round(v, 3) for v in out['peak_GiB_per_rank']]}; launches per "
+          f"rank {counts} (single {single['launches']}); collectives rank 0 "
+          f"{r0['calls']}, staged through host {r0['staged']}")
+    return out
+
+
+def phase_mesh(sp, se, d, dev):
+    """Phase 19: the mesh, two spawns of ranks on the card through
+    ``parallel.launch``, each step held against the single-device step on
+    the card (MESH_TOL). (a) data parallel at the EXPY-TKY width on (2, 1),
+    road_sparse through the block-COO kernel, 5 steps; (c) MegaCRNx and GTS
+    (f64 and f32) data parallel at the METR-LA width on (2, 1), 3 steps
+    each; then on a (2, 3) mesh, six ranks: (b) the node partition at the
+    METR-LA width (N=207, 69 nodes a rank), 3 steps each on block-ELL
+    packs, node-ELL flat and bucketed, dense and dense_ring; (d) one CLI
+    epoch each of ``traintest --dataset SYNTH`` with ``road_sparse`` and
+    ``dense_ring`` on (2, 3), their test metrics read from rank 0's
+    metrics.jsonl."""
+    import pickle
+
+    from megacrn_tpu_torch.parallel import launch
+
+    require(not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    expy = dict(kind="megacrn", preset="EXPYTKY", backend="road_sparse",
+                road="coo", steps=5, mesh=(2, 1),
+                # EXPY-TKY's protocol with Adam's eps at 1e-3 and the clip
+                # at 5 (see mesh_case's MegaCRNx note on eps 1e-8).
+                train={"epsilon": 1e-3, "max_grad_norm": 5.0})
+    spawn_a = [dict(expy, name="a_dp_expytky_road_sparse_coo"),
+               dict(kind="megacrnx", name="c_dp_megacrnx", steps=3,
+                    mesh=(2, 1)),
+               # GTS is held in f64 against the unchanged whole-batch
+               # single-device step: its extractor gradients (conv2, bn1)
+               # are sums that cancel below f32 rounding at this width, so
+               # in f32 two summation orders of one batch on one device
+               # differ by more than GRAD_TOL (the distance is printed).
+               dict(kind="gts", name="c_dp_gts_f64", steps=3, mesh=(2, 1),
+                    noise=True, dtype="float64"),
+               # And in f32 against the single-device step that sums the
+               # two half batches' shares as the mesh does.
+               dict(kind="gts", name="c_dp_gts", steps=3, mesh=(2, 1),
+                    noise=True, reference="halves")]
+    metr = dict(kind="megacrn", preset="METRLA", steps=3, mesh=(2, 3),
+                train={})
+    spawn_b = [dict(metr, name="b_node_block_ell", backend="road_sparse",
+                    road="block_ell"),
+               dict(metr, name="b_node_ell_flat", backend="road_sparse",
+                    road="node_ell_flat"),
+               dict(metr, name="b_node_ell_bucketed", backend="road_sparse",
+                    road="node_ell_bucketed"),
+               dict(metr, name="b_node_dense", backend="dense"),
+               dict(metr, name="b_node_dense_ring", backend="dense_ring")]
+    cli_base = ["--dataset", "SYNTH", "--synth_steps", "1000", "--epochs",
+                "1", "--seed", "0", "--mesh_data", "2", "--mesh_node", "3"]
+    for backend in ("road_sparse", "dense_ring"):
+        spawn_b.append(dict(
+            name=f"d_cli_{backend}", cli="megacrn_tpu_torch.cli.traintest",
+            argv=cli_base + ["--graph_backend", backend, "--save_dir",
+                             os.path.join(d, f"mesh_cli_{backend}")]))
+    t0 = time.perf_counter()
+    singles = {s["name"]: mesh_case(s, dev) for s in spawn_a + spawn_b
+               if "cli" not in s}
+    gts = next(s for s in spawn_a if s["name"] == "c_dp_gts")
+    gts_order = state_over_limit(
+        mesh_case(dict(gts, reference="whole"), dev)["state"],
+        singles[gts["name"]]["state"])
+    print(f"mesh: GTS on one device, the whole batch against its two "
+          f"halves' shares after {gts['steps']} steps: {gts_order[0]:.4f} "
+          f"of MESH_TOL ({gts_order[1]})")
+    print(f"mesh: single-device references {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {}
+    for world, specs in ((2, spawn_a), (6, spawn_b)):
+        where = os.path.join(d, f"mesh_ranks_{world}")
+        os.makedirs(where)
+        t0 = time.perf_counter()
+        launch.spawn(mesh_ranks, world, args=(specs, where), device="cuda")
+        print(f"mesh: {world} ranks on the card, "
+              f"{time.perf_counter() - t0:.1f} s for the spawn and its runs")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(where, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        for spec in specs:
+            name = spec["name"]
+            if "cli" in spec:
+                counts = [res[name]["launches"] for res in ranks]
+                records = fit_records(name, spec["argv"][-1])
+                final = [r for r in records if "final_test" in r]
+                require(len(final) == 1 and all(
+                    np.isfinite(v) for v in final[0]["final_test"].values()),
+                    f"{name}: final test metrics {final}")
+                if "road_sparse" in name:
+                    require(all(c["spmm_ell"] > 0 for c in counts),
+                            f"{name}: a rank launched no spmm_ell: {counts}")
+                out[name] = {"launches_per_rank": counts,
+                             "wall_s": ranks[0][name]["wall_s"],
+                             "calls_rank0": ranks[0][name]["calls"],
+                             "staged_rank0": ranks[0][name]["staged"],
+                             "final_test": final[0]["final_test"]}
+                print(f"mesh {name}: wall {out[name]['wall_s']:.2f} s, "
+                      f"launches per rank {counts}, collectives rank 0 "
+                      f"{out[name]['calls_rank0']}, staged "
+                      f"{out[name]['staged_rank0']}, final test "
+                      f"{json.dumps(final[0]['final_test'])}")
+                continue
+            kernel = {"coo": "spmm_coo", "block_ell": "spmm_ell"}.get(
+                spec.get("road"))
+            out[name] = hold_mesh(name, ranks, singles[name], kernel)
+    out[gts["name"]]["whole_vs_halves_over_limit"] = gts_order
+    a = out["a_dp_expytky_road_sparse_coo"]
+    require(all(c["spmm_coo"] == a["single_launches"]["spmm_coo"]
+                for c in a["launches_per_rank"]),
+            f"mesh (a): spmm_coo per rank {a['launches_per_rank']} against "
+            f"the single-device step's {a['single_launches']}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: FAIL: torch.cuda.is_available() is "
@@ -2124,6 +2607,8 @@ def main():
         # The two other model families.
         megacrnx = phase_megacrnx(sp, se, d, dev)
         gts = phase_gts(sp, se, d, dev)
+        # The mesh.
+        mesh = phase_mesh(sp, se, d, dev)
     # Each path's counts as read just after it (measured, zeros included).
     by_path = {"serving_3_requests": serving,
                "train_stacked_coo_5_steps": train["stacked_coo"]["launches"],
@@ -2157,6 +2642,16 @@ def main():
         entry["train_step_backward_launches"] = res["bwd"]
         entry["train_step_ms"] = res["ms"]
         entry["train_step_plain_ms"] = res["plain_ms"]
+    # The mesh paths' launches, per rank (each rank's counts set to 0 just
+    # before its steps and read just after).
+    coo["mesh_launches_per_rank"] = {
+        "a_dp_expytky_road_sparse_coo_5_steps":
+            mesh["a_dp_expytky_road_sparse_coo"]["launches_per_rank"]}
+    ell["mesh_launches_per_rank"] = {
+        "b_node_block_ell_3_steps": mesh["b_node_block_ell"][
+            "launches_per_rank"],
+        "d_cli_road_sparse_1_epoch": mesh["d_cli_road_sparse"][
+            "launches_per_rank"]}
     # The main path is now the traintest CLI (fit (a)): the COO kernel's
     # launches are that run's.
     coo["launches"] = fit_a["launches"]["spmm_coo"]
@@ -2200,7 +2695,10 @@ def main():
             "gts": gts["small_card_vs_cpu_max_abs_err"]},
         "small_gts_grad_err_over_limit": gts["small_grad_err_over_limit"],
         "grad_holds": {kind: train[kind]["holds"] for kind in train}}))
-    print(json.dumps({"kernels": [coo, ell]}))
+    print(json.dumps({"mesh": {
+        name: {k: v for k, v in res.items() if k != "final_test"}
+        for name, res in mesh.items()}}, default=float))
+    print(json.dumps({"kernels": [coo, ell]}, default=float))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,17 @@ Usage (mirrors ``python traintest_MegaCRN.py --dataset=METRLA --gpu=0``,
     python -m megacrn_tpu_torch.cli.traintest --dataset METRLA --data_dir METRLA
     python -m megacrn_tpu_torch.cli.traintest --dataset SYNTH --num_nodes 64
     python -m megacrn_tpu_torch.cli.traintest --dataset SYNTH --device cpu
+    python -m megacrn_tpu_torch.cli.traintest --dataset SYNTH \
+        --mesh_data 2 --mesh_node 3 --graph_backend dense_ring
 
 Every reference knob (model/traintest_MegaCRN.py:158-187) is exposed; dataset
-presets hard-set num_nodes exactly as the reference does (:190-195). The
-flags of the JAX CLI whose code is not ported yet (``dense_ring``, the
-mesh, Orbax) are accepted and refused with the ROADMAP item that ports
-them; none falls back to something else.
+presets hard-set num_nodes exactly as the reference does (:190-195).
+``--mesh_data x --mesh_node y`` (x * y > 1) trains on a mesh: without
+``WORLD_SIZE`` in the environment the CLI spawns x * y local ranks itself
+(``parallel.launch``), under torchrun each rank joins the group it is
+given; only rank 0 writes the run dir. The JAX CLI's ``--ckpt_backend
+orbax`` is accepted and refused with the ROADMAP item that ports it; no
+flag falls back to something else.
 """
 from __future__ import annotations
 
@@ -60,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "meta-graph), road_sparse (the static road graph "
                         "through a sparse product) or sparse_meta (the "
                         "learned meta-graph restricted to the road graph's "
-                        "edges); dense_ring is not ported yet")
+                        "edges); dense_ring (the dense backend whose "
+                        "aggregation runs the ring schedule over the mesh's "
+                        "node axis)")
     p.add_argument("--adj_path", type=str, default=None,
                    help=".npy 0/1 road adjacency (expy-tky_adj01.npy "
                         "semantics, model_EXPYTKY/traintest_MegaCRN.py:"
@@ -135,12 +142,9 @@ def unported_flags(args):
     """[(flag, ROADMAP Queue 1 item)] of the JAX CLI's options whose code
     the port does not have yet."""
     out = []
-    if args.graph_backend == "dense_ring":
-        out.append(("--graph_backend dense_ring",
-                    "11 (parallelism: mesh and dense_ring)"))
-    if args.mesh_data * args.mesh_node > 1:
-        out.append(("--mesh_data/--mesh_node > 1",
-                    "11 (parallelism: mesh and dense_ring)"))
+    if args.graph_backend == "sparse_meta" and args.mesh_node > 1:
+        out.append(("--graph_backend sparse_meta with --mesh_node > 1",
+                    "11 (its remainder: sparse_meta on the node axis)"))
     if args.ckpt_backend == "orbax":
         out.append(("--ckpt_backend orbax", "4 (Orbax checkpoints)"))
     return out
@@ -219,7 +223,8 @@ def build_road_supports(args, model_cfg):
     CUDA kernel; ``xla``: its plain PyTorch version) or a stacked node-ELL
     pack (``ell``). ``sparse_meta``: the symmetrised edge pattern with self
     loops -> ``build_node_pattern`` (``--sparse_meta_impl node``) or
-    ``build_block_pattern`` (``block``). None for the dense backend."""
+    ``build_block_pattern`` (``block``). None for the dense backends.
+    ``partition_road_supports`` cuts the road supports for the node axis."""
     if model_cfg.graph_backend not in ("road_sparse", "sparse_meta"):
         return None
     from megacrn_tpu_torch.data import expytky
@@ -243,6 +248,8 @@ def build_road_supports(args, model_cfg):
         from megacrn_tpu_torch.ops.graph import dual_random_walk_supports
 
         supports = list(dual_random_walk_supports(adj))
+        if args.mesh_node > 1:
+            return partition_road_supports(args, supports)
         if args.road_impl == "ell":
             from megacrn_tpu_torch.kernels.spmm_ell_node import \
                 build_stacked_node_ell
@@ -271,6 +278,21 @@ def build_road_supports(args, model_cfg):
     from megacrn_tpu_torch.kernels.sparse_graph import build_block_pattern
 
     return build_block_pattern(pat)
+
+
+def partition_road_supports(args, supports):
+    """The road supports cut into the row blocks of the ``--mesh_node``
+    axis for fit's node-partitioned step: node-ELL (``--road_impl ell``)
+    or block-ELL packs (the others: the block-ELL CUDA kernel, or with
+    ``xla`` its plain version), as the JAX CLI cuts them."""
+    if args.road_impl == "ell":
+        from megacrn_tpu_torch.kernels.spmm_ell_node import shard_node_ell
+
+        return shard_node_ell(supports, args.mesh_node)
+    from megacrn_tpu_torch.kernels.spmm import shard_road_packs
+
+    return shard_road_packs(supports, args.mesh_node, impl=(
+        "reference" if args.road_impl == "xla" else "kernel"))
 
 
 def _predict_fn(model, road_supports):
@@ -326,13 +348,25 @@ def main(argv=None):
             f"{flag} (ROADMAP Queue 1 item {item})" for flag, item in refused))
     model_cfg, train_cfg = configs_from_args(args)
 
-    from megacrn_tpu_torch import resolve_device
     from megacrn_tpu_torch.data import datasets
-    from megacrn_tpu_torch.train.logs import RunDir
+    from megacrn_tpu_torch.parallel import launch
+    from megacrn_tpu_torch.train.logs import RunDir, mesh_run_dir
     from megacrn_tpu_torch.train.loop import fit
 
     # Fail fast, before any data loading: no card, no adjacency.
-    device = resolve_device(args.device)
+    spawned, mesh, device = launch.cli_mesh(main, argv, args.mesh_data,
+                                            args.mesh_node, args.device)
+    if spawned:
+        return None
+    if mesh is not None and train_cfg.seed is None:
+        import dataclasses
+        import time
+
+        from megacrn_tpu_torch.parallel.comm import broadcast_object
+
+        # One seed on every rank: the loaders' order and the coins agree.
+        train_cfg = dataclasses.replace(
+            train_cfg, seed=broadcast_object(int(time.time())))
     road_supports = build_road_supports(args, model_cfg)
 
     # With --seed the construction-time permutation is seeded too, so one
@@ -358,22 +392,29 @@ def main(argv=None):
 
     # --resume continues the newest run dir of this dataset under
     # --save_dir (the JAX CLI opens a new, empty one and so starts afresh).
-    run = RunDir(args.save_dir, args.dataset, timestring=(
+    run = mesh_run_dir(args.save_dir, args.dataset, mesh, timestring=(
         RunDir.latest_timestring(args.save_dir, args.dataset)
         if args.resume else None))
     final_eval_fn = None
-    if args.dataset.startswith("EXPYTKY"):
-        final_eval_fn = _make_expytky_final_eval(model_cfg, data,
-                                                 road_supports)
-    elif train_cfg.eval_aggregation == "concat":
-        final_eval_fn = _make_concat_final_eval(model_cfg, data,
-                                                road_supports)
+    if args.dataset.startswith("EXPYTKY") or (
+            train_cfg.eval_aggregation == "concat"):
+        # The final evals run one device's forward: on the node-partitioned
+        # path they take the whole road constant.
+        eval_supports = road_supports
+        if args.mesh_node > 1 and road_supports is not None:
+            eval_supports = build_road_supports(
+                argparse.Namespace(**dict(vars(args), mesh_node=1)),
+                model_cfg)
+        make = (_make_expytky_final_eval if args.dataset.startswith("EXPYTKY")
+                else _make_concat_final_eval)
+        final_eval_fn = make(model_cfg, data, eval_supports)
     result = fit(model_cfg, train_cfg, data, run, resume=args.resume,
                  test_every_epoch=args.test_every_epoch,
                  final_eval_fn=final_eval_fn, road_supports=road_supports,
                  profile_dir=args.profile_dir,
-                 profile_steps=args.profile_steps, device=device)
-    print({k: v for k, v in result["test_metrics"].items()})
+                 profile_steps=args.profile_steps, device=device, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print({k: v for k, v in result["test_metrics"].items()})
     return result
 
 

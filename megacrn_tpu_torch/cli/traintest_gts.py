@@ -11,7 +11,8 @@ Conv1d feature extractor and the cosine-kNN prior
 (``traintest_GTS.py:324-333``): the ``--train_frac`` head of the series,
 scaled by its own scaler. For npz datasets the raw series comes from
 ``--raw_h5``, read without pandas (``data/hdf5.py``, through h5py).
-``--mesh_data`` > 1 is refused with the ROADMAP item that ports it.
+``--mesh_data`` > 1 trains data-parallel over that many ranks
+(``parallel.launch`` spawns them unless torchrun did).
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ def build_parser():
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--synth_steps", type=int, default=2000)
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="data-parallel mesh axis size (not ported yet)")
+                   help="data-parallel mesh axis size")
     # trainval_ratio * (1 - val_ratio) = the raw series' train fraction
     # (traintest_GTS.py:325: 0.8 * (1 - 0.125) = 0.7).
     p.add_argument("--train_frac", type=float, default=0.7)
@@ -91,16 +92,24 @@ def configs_from_args(args, train_series_len: int):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh_data > 1:
-        raise SystemExit("not ported yet: --mesh_data > 1 (ROADMAP Queue 1 "
-                         "item 11 (parallelism: mesh and dense_ring))")
 
-    from megacrn_tpu_torch import resolve_device
     from megacrn_tpu_torch.data import datasets
+    from megacrn_tpu_torch.parallel import launch
     from megacrn_tpu_torch.train.gts_loop import fit_gts
-    from megacrn_tpu_torch.train.logs import RunDir
+    from megacrn_tpu_torch.train.logs import mesh_run_dir
 
-    device = resolve_device(args.device)  # before any data loading
+    # Before any data loading: no card fails here.
+    spawned, mesh, device = launch.cli_mesh(main, argv, args.mesh_data, 1,
+                                            args.device)
+    if spawned:
+        return None
+    if mesh is not None and args.seed is None:
+        import time
+
+        from megacrn_tpu_torch.parallel.comm import broadcast_object
+
+        # One seed on every rank: the loader's order and the draws agree.
+        args.seed = broadcast_object(int(time.time()))
     # With --seed the train loader's permutation is seeded too (the JAX CLI
     # draws it from OS entropy whatever the seed).
     shuffle_rng = (None if args.seed is None
@@ -126,10 +135,11 @@ def main(argv=None):
     train_feas, knn_prior = train_feas_and_prior(raw, args.train_frac,
                                                  args.knn_k)
     cfg, tcfg = configs_from_args(args, train_feas.shape[0])
-    run = RunDir(args.save_dir, args.dataset, model_name="GTS")
+    run = mesh_run_dir(args.save_dir, args.dataset, mesh, model_name="GTS")
     result = fit_gts(cfg, tcfg, data, train_feas, knn_prior, run,
-                     max_epochs=args.epochs, device=device)
-    print(result["test_metrics"])
+                     max_epochs=args.epochs, device=device, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print(result["test_metrics"])
     return result
 
 

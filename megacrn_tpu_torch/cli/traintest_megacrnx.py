@@ -11,8 +11,10 @@ The flag surface mirrors the reference parser (traintest_MegaCRNx.py:210-
 233); ``--dataset SYNTH`` substitutes a generated series for the h5 blobs,
 which are read without pandas (``data/hdf5.py``, through h5py). Train
 protocol: ratio windowing without shuffling, the inverse transform inside
-the loss, no curriculum (``train/megacrnx_loop.py``). ``--mesh_data`` /
-``--mesh_node`` > 1 are refused with the ROADMAP item that ports them.
+the loss, no curriculum (``train/megacrnx_loop.py``). ``--mesh_data x
+--mesh_node y`` (x * y > 1) trains data-parallel over x * y ranks, the
+node axis replicated as in JAX (``parallel.launch`` spawns them unless
+torchrun did).
 """
 from __future__ import annotations
 
@@ -133,22 +135,25 @@ def configs_from_args(args, num_nodes: int):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh_data * args.mesh_node > 1:
-        raise SystemExit("not ported yet: --mesh_data/--mesh_node > 1 "
-                         "(ROADMAP Queue 1 item 11 (parallelism: mesh and "
-                         "dense_ring))")
 
-    from megacrn_tpu_torch import resolve_device
-    from megacrn_tpu_torch.train.logs import RunDir
+    from megacrn_tpu_torch.parallel import launch
+    from megacrn_tpu_torch.train.logs import mesh_run_dir
     from megacrn_tpu_torch.train.megacrnx_loop import fit_megacrnx
 
-    device = resolve_device(args.device)  # before any data loading
+    # Before any data loading: no card fails here.
+    spawned, mesh, device = launch.cli_mesh(main, argv, args.mesh_data,
+                                            args.mesh_node, args.device)
+    if spawned:
+        return None
     data = build_data(args)
     model_cfg, train_cfg = configs_from_args(args, data["num_nodes"])
-    run = RunDir(args.save_dir, args.dataset, model_name="MegaCRNx")
-    result = fit_megacrnx(model_cfg, train_cfg, data, run, device=device)
-    print({k: v for k, v in result["test_metrics"].items()
-           if k != "per_step"})
+    run = mesh_run_dir(args.save_dir, args.dataset, mesh,
+                       model_name="MegaCRNx")
+    result = fit_megacrnx(model_cfg, train_cfg, data, run, device=device,
+                          mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print({k: v for k, v in result["test_metrics"].items()
+               if k != "per_step"})
     return result
 
 

@@ -28,8 +28,13 @@ Two implementations of ``y = A @ x``:
 
 ``SpmmELLFunction`` makes ``spmm`` differentiable in x (backward: the same
 kernel on the transposed pack); ``spmm_batched`` folds a batch into the
-feature axis. The node-partitioned helpers (``shard_road_packs``,
-``local_packs``, ``rcm_ordering``) come with the mesh slice.
+feature axis.
+
+The node-partitioned half (``shard_road_packs``, ``local_packs``,
+``rcm_ordering``) cuts each support into the row blocks of the mesh's node
+axis: rank d multiplies its rectangular (n_loc x N) pack by the gathered x
+(``parallel.ring.cheb_aggregate_sparse_sharded``) and its (N x n_loc)
+transpose carries the backward, through the same kernel.
 """
 from __future__ import annotations
 
@@ -135,6 +140,91 @@ def build_road_ell_pairs(supports, impl: str = "kernel") -> list:
     sups = [np.asarray(s, np.float32) for s in supports]
     return [(to_block_ell(s)._replace(impl=impl),
              transpose_block_ell(s)._replace(impl=impl)) for s in sups]
+
+
+class ShardedRoadPacks(NamedTuple):
+    """Row-partitioned road supports for the node axis of a mesh (the JAX
+    ``ShardedRoadPacks``). ``fwd[s][d]``: rank d's rows of support s, a
+    rectangular (n_loc x N) ``BlockELL``; ``bwd[s][d]``: its transpose
+    (N x n_loc), which the backward reads. Each pack carries its nonzero
+    list; the column ids stay global. Every rank builds the whole set and
+    takes its own with ``local_packs``."""
+
+    fwd: tuple
+    bwd: tuple
+    n_loc: int
+    n_full: int
+
+
+def _stack_ragged(packs) -> list:
+    """Equalize ``max_blocks`` across the shards' packs (zero tiles, column
+    0), as the JAX package stacks them; the nonzero lists are unchanged."""
+    maxb = max(int(p.cols.shape[1]) for p in packs)
+    out = []
+    for p in packs:
+        pad = maxb - p.cols.shape[1]
+        if pad:
+            p = p._replace(
+                data=torch.nn.functional.pad(p.data, (0, 0, 0, 0, 0, pad)),
+                cols=torch.nn.functional.pad(p.cols, (0, pad)))
+        out.append(p)
+    return out
+
+
+def shard_road_packs(supports, n_shards: int,
+                     impl: str = "kernel") -> ShardedRoadPacks:
+    """Row-partition dense numpy supports for the node-partitioned path.
+    supports: list of (N, N) numpy arrays; N must divide by ``n_shards``
+    (the node-axis split of the activations). Host-side; move a rank's
+    packs with ``BlockELL.to``."""
+    n = supports[0].shape[0]
+    if n % n_shards:
+        raise ValueError(f"num_nodes {n} not divisible by {n_shards}")
+    n_loc = n // n_shards
+    fwd, bwd = [], []
+    for s in supports:
+        s = np.asarray(s, np.float32)
+        rows = [s[d * n_loc:(d + 1) * n_loc, :] for d in range(n_shards)]
+        fwd.append(tuple(p._replace(impl=impl) for p in _stack_ragged(
+            [to_block_ell(r) for r in rows])))
+        bwd.append(tuple(p._replace(impl=impl) for p in _stack_ragged(
+            [transpose_block_ell(r) for r in rows])))
+    return ShardedRoadPacks(tuple(fwd), tuple(bwd), n_loc, n)
+
+
+def local_packs(sp: ShardedRoadPacks, index: int) -> list:
+    """Rank ``index``'s ``(BlockELL, BlockELL_t)`` pair of each support."""
+    return [(f[index], b[index]) for f, b in zip(sp.fwd, sp.bwd)]
+
+
+def rcm_ordering(adj: np.ndarray) -> np.ndarray:
+    """Reverse Cuthill-McKee node ordering (BFS by ascending degree).
+
+    Road graphs have spatial locality but arbitrary node numbering; RCM
+    reduces bandwidth so nonzeros cluster near the diagonal and the 128x128
+    block pack touches far fewer tiles. Apply as
+    ``adj[perm][:, perm]`` (and permute node features consistently).
+    """
+    n = adj.shape[0]
+    pattern = (np.abs(adj) + np.abs(adj.T)) > 0
+    degree = pattern.sum(1)
+    visited = np.zeros(n, bool)
+    order = []
+    while len(order) < n:
+        # start each component from its minimum-degree unvisited node
+        start = int(np.argmin(np.where(visited, np.iinfo(np.int64).max,
+                                       degree)))
+        queue = [start]
+        visited[start] = True
+        while queue:
+            u = queue.pop(0)
+            order.append(u)
+            nbrs = np.nonzero(pattern[u] & ~visited)[0]
+            nbrs = nbrs[np.argsort(degree[nbrs], kind="stable")]
+            for v in nbrs:
+                visited[v] = True
+                queue.append(int(v))
+    return np.asarray(order[::-1], np.int64)
 
 
 def spmm_reference(a: BlockELL, x: torch.Tensor) -> torch.Tensor:

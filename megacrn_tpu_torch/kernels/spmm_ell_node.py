@@ -16,8 +16,14 @@ packs get no gradient (they are graph constants).
 The JAX package writes all of this as XLA gathers and reductions, not as a
 Pallas kernel, and so does the port, in plain PyTorch. The numpy builders
 are copies of the JAX ones; the index arrays become int64 tensors once,
-here, and never per call. The mesh (node-partitioned) half of the JAX
-module is not ported yet (ROADMAP Queue 1, parallelism).
+here, and never per call.
+
+The node-partitioned half (``shard_node_ell``, ``local_node_ell``,
+``cheb_aggregate_node_ell_sharded``) gives each rank of the mesh's node
+axis the ELL rows of its node block, with GLOBAL column ids: the x node
+blocks are all-gathered over the axis and the gather-reduce runs on the
+local rows only; autograd's index backward and the gather's reduce-scatter
+carry dx back.
 """
 from __future__ import annotations
 
@@ -385,3 +391,212 @@ def cheb_aggregate_node_ell(packs, x: torch.Tensor,
              for s in range(s_num) for k in range(cheb_k)]
     stack = torch.stack(terms, 1)  # (N, S*K, F)
     return stack.view(n, s_num * cheb_k, b, c).permute(2, 0, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# Node-partitioned (mesh) half: each rank owns the ELL rows of its node block.
+# ---------------------------------------------------------------------------
+
+class ShardedNodeELL(NamedTuple):
+    """Row-partitioned flat node-ELL supports: nbr / w (n_shards, S, n_loc,
+    D), every (rank, support) slice padded to one global max degree D;
+    column ids are global node ids in [0, n_full)."""
+
+    nbr: torch.Tensor
+    w: torch.Tensor
+    n_loc: int
+    n_full: int
+
+
+class LocalNodeELL(NamedTuple):
+    """One rank's rows: nbr / w (S, n_loc, D)."""
+
+    nbr: torch.Tensor
+    w: torch.Tensor
+    n_full: int
+
+    def to(self, device=None, dtype=None,
+           transpose: bool = False) -> "LocalNodeELL":
+        """Move both arrays, cast the weights (no transposed side: the
+        backward is autograd's)."""
+        return self._replace(nbr=self.nbr.to(device),
+                             w=self.w.to(device=device, dtype=dtype))
+
+
+class BucketedShardedNodeELL(NamedTuple):
+    """Degree-bucketed row-partitioned node-ELL supports with one bucket
+    layout on every rank: the buckets are cut on the ENVELOPE of the ranks'
+    sorted degree profiles (``env[r]`` = the largest r-th smallest local
+    degree over the ranks), so bucket b holds the same sorted ranks
+    [start_b, end_b) on every rank, padded to the envelope's max D_b.
+
+    nbr / w: per support, per bucket (n_shards, n_b, D_b) arrays; inv: per
+    support (n_shards, n_loc) with ``y_local = cat_b(bucket outputs)[inv]``
+    (each rank's own un-permute). Column ids are global."""
+
+    nbr: tuple
+    w: tuple
+    inv: tuple
+    n_loc: int
+    n_full: int
+
+
+class LocalBucketedNodeELL(NamedTuple):
+    """One rank's buckets: per support, per bucket (n_b, D_b) nbr / w, and
+    the (n_loc,) un-permute."""
+
+    nbr: tuple
+    w: tuple
+    inv: tuple
+    n_full: int
+
+    def to(self, device=None, dtype=None,
+           transpose: bool = False) -> "LocalBucketedNodeELL":
+        return self._replace(
+            nbr=tuple(tuple(a.to(device) for a in t) for t in self.nbr),
+            w=tuple(tuple(a.to(device=device, dtype=dtype) for a in t)
+                    for t in self.w),
+            inv=tuple(a.to(device) for a in self.inv))
+
+
+def shard_node_ell(supports, n_shards: int, max_buckets: int = 4,
+                   min_saving: float = 0.10):
+    """Row-partition dense numpy supports for the node-partitioned ELL path;
+    N must divide by ``n_shards``. When degree bucketing on the envelope
+    saves at least ``min_saving`` of the padded gather slots over the flat
+    global-max-degree layout, returns a ``BucketedShardedNodeELL``, else (or
+    with ``max_buckets=1``) the flat ``ShardedNodeELL``."""
+    sups = [np.asarray(s, np.float32) for s in supports]
+    n = sups[0].shape[0]
+    if n % n_shards:
+        raise ValueError(f"num_nodes {n} not divisible by {n_shards}")
+    n_loc = n // n_shards
+    d_max = 1
+    degs = []  # per support: (n_shards, n_loc) local row degrees
+    for a in sups:
+        deg = (a != 0).sum(1).reshape(n_shards, n_loc)
+        degs.append(deg)
+        d_max = max(d_max, int(deg.max()))
+    flat_slots = len(sups) * n_shards * n_loc * d_max
+
+    if max_buckets > 1:
+        plans = []  # per support: (cut_ends, widths) on the envelope
+        bucket_slots = 0
+        for deg in degs:
+            env = np.sort(deg, axis=1).max(axis=0)  # nondecreasing envelope
+            _, cut_ends = _bucket_splits(env, max_buckets)
+            widths = [max(1, int(env[e - 1])) for e in cut_ends]
+            starts = [0] + list(cut_ends[:-1])
+            bucket_slots += n_shards * sum(
+                (e - s) * d for s, e, d in zip(starts, cut_ends, widths))
+            plans.append((cut_ends, widths))
+        if bucket_slots <= (1.0 - min_saving) * flat_slots:
+            return _shard_node_ell_bucketed(sups, n_shards, degs, plans)
+
+    nbr = np.zeros((n_shards, len(sups), n_loc, d_max), np.int32)
+    w = np.zeros((n_shards, len(sups), n_loc, d_max), np.float32)
+    for si, a in enumerate(sups):
+        for dev in range(n_shards):
+            blk = a[dev * n_loc:(dev + 1) * n_loc]
+            rows, cols = np.nonzero(blk)
+            slot = _slots_for(rows)
+            nbr[dev, si][rows, slot] = cols
+            w[dev, si][rows, slot] = blk[rows, cols]
+    return ShardedNodeELL(_index(nbr), _values(w), n_loc, n)
+
+
+def _shard_node_ell_bucketed(sups, n_shards, degs, plans):
+    """Pack every rank's degree-sorted local rows into the shared envelope
+    buckets (``plans``: per support (cut_ends, widths))."""
+    n = sups[0].shape[0]
+    n_loc = n // n_shards
+    all_nbr, all_w, all_inv = [], [], []
+    for a, deg, (cut_ends, widths) in zip(sups, degs, plans):
+        starts = [0] + list(cut_ends[:-1])
+        nbrs = [np.zeros((n_shards, e - s, d), np.int32)
+                for s, e, d in zip(starts, cut_ends, widths)]
+        ws = [np.zeros((n_shards, e - s, d), np.float32)
+              for s, e, d in zip(starts, cut_ends, widths)]
+        inv = np.zeros((n_shards, n_loc), np.int64)
+        starts_a, ends_a = np.asarray(starts), np.asarray(cut_ends)
+        for dev in range(n_shards):
+            order = np.argsort(deg[dev], kind="stable")
+            rank = np.empty(n_loc, np.int64)
+            rank[order] = np.arange(n_loc)
+            inv[dev] = rank
+            blk = a[dev * n_loc:(dev + 1) * n_loc]
+            rows, cols = np.nonzero(blk)  # row-major: rows nondecreasing
+            vals = blk[rows, cols]
+            slot = _slots_for(rows)
+            r_rank = rank[rows]
+            bucket_of = np.searchsorted(ends_a, r_rank, side="right")
+            local_row = r_rank - starts_a[bucket_of]
+            for b in range(len(cut_ends)):
+                m = bucket_of == b
+                nbrs[b][dev][local_row[m], slot[m]] = cols[m]
+                ws[b][dev][local_row[m], slot[m]] = vals[m]
+        all_nbr.append(tuple(_index(x) for x in nbrs))
+        all_w.append(tuple(_values(x) for x in ws))
+        all_inv.append(_index(inv))
+    return BucketedShardedNodeELL(tuple(all_nbr), tuple(all_w),
+                                  tuple(all_inv), n_loc, n)
+
+
+def local_node_ell(sp, index: int):
+    """Rank ``index``'s rows of a ``ShardedNodeELL`` or
+    ``BucketedShardedNodeELL``."""
+    if isinstance(sp, BucketedShardedNodeELL):
+        pick = lambda t: tuple(a[index] for a in t)
+        return LocalBucketedNodeELL(tuple(pick(t) for t in sp.nbr),
+                                    tuple(pick(t) for t in sp.w),
+                                    pick(sp.inv), sp.n_full)
+    return LocalNodeELL(sp.nbr[index], sp.w[index], sp.n_full)
+
+
+def _apply_batched(nbr, w, t_full):
+    """y[b, r] = sum_d w[r, d] * t_full[b, nbr[r, d]]: the batch-first form
+    of ``_ell_apply``, unrolled in slot order for small D like the JAX
+    package (its f32 sums), one einsum above ``_UNROLL_MAX_D``."""
+    if nbr.shape[1] <= _UNROLL_MAX_D:
+        acc = None
+        for d in range(nbr.shape[1]):
+            t = w[:, d, None].to(t_full.dtype) * t_full[:, nbr[:, d]]
+            acc = t if acc is None else acc + t
+        return acc
+    return torch.einsum("rd,brdc->brc", w.to(t_full.dtype), t_full[:, nbr])
+
+
+def cheb_aggregate_node_ell_sharded(pack, x: torch.Tensor, cheb_k: int,
+                                    group) -> torch.Tensor:
+    """Node-partitioned Chebyshev stack: all-gather the x node blocks over
+    ``group`` (the mesh's node group), gather-reduce on the local rows.
+    Output (B, n_loc, S*K, C), node-local. Each further Chebyshev level
+    re-gathers its input, as ``parallel.ring.cheb_aggregate_sparse_sharded``
+    does. ``pack``: ``LocalNodeELL`` or ``LocalBucketedNodeELL`` (per-bucket
+    gather-reduce, concatenated, one un-permute)."""
+    from megacrn_tpu_torch.parallel.comm import all_gather_nodes
+
+    if isinstance(pack, LocalBucketedNodeELL):
+        num_supports = len(pack.nbr)
+
+        def apply_local(s, t_full):  # (B, N, C) -> (B, n_loc, C)
+            parts = [_apply_batched(nbr_b, w_b, t_full)
+                     for nbr_b, w_b in zip(pack.nbr[s], pack.w[s])]
+            return torch.cat(parts, 1)[:, pack.inv[s]]
+    else:
+        num_supports = pack.nbr.shape[0]
+
+        def apply_local(s, t_full):
+            return _apply_batched(pack.nbr[s], pack.w[s], t_full)
+
+    x_full = all_gather_nodes(x, group)
+    terms = []
+    for s in range(num_supports):
+        t_prev, t_cur = x, apply_local(s, x_full)
+        terms += [t_prev, t_cur]
+        for _ in range(2, cheb_k):
+            t_prev, t_cur = t_cur, (
+                2.0 * apply_local(s, all_gather_nodes(t_cur, group))
+                - t_prev)
+            terms.append(t_cur)
+    return torch.stack(terms, dim=2)

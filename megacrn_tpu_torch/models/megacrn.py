@@ -16,8 +16,18 @@ meta-graph on a static edge pattern (``NodeELLPattern``,
 ``BucketedNodeELLPattern`` or the 128x128-tile ``BlockPattern``). The
 forward serves and trains: with ``training=True`` the decoder does scheduled
 sampling, and ``cfg.remat`` recomputes each cell step in the backward. The
-encoder and decoder loop over time in Python. ``dense_ring`` (the mesh) is
-not ported yet.
+encoder and decoder loop over time in Python.
+
+Inside a node-partitioned step of ``parallel.api`` the forward gets the
+mesh's ``node_group`` (the counterpart of the JAX ``ring_axis`` and
+``shard_fn``): x holds this rank's node block, and the aggregation crosses
+ranks. ``dense_ring`` builds the rank's rows of the meta-graph supports and
+aggregates on the ring (``parallel.ring``), ``dense`` under a node axis > 1
+the same rows with the x blocks all-gathered (the all-gather GSPMD inserts
+in JAX); a list of local block-ELL pairs goes through
+``cheb_aggregate_sparse_sharded``, a ``LocalNodeELL`` /
+``LocalBucketedNodeELL`` through ``cheb_aggregate_node_ell_sharded``.
+Outside a mesh ``dense_ring`` is the ``dense`` path, as in JAX.
 """
 from __future__ import annotations
 
@@ -37,9 +47,9 @@ from megacrn_tpu_torch.kernels.sparse_graph_node import (
     sparse_meta_graph_node)
 from megacrn_tpu_torch.kernels.spmm import BlockELL
 from megacrn_tpu_torch.kernels.spmm_coo import StackedRoadPack
-from megacrn_tpu_torch.kernels.spmm_ell_node import (BucketedStackedNodeELL,
-                                                     StackedNodeELL,
-                                                     cheb_aggregate_node_ell)
+from megacrn_tpu_torch.kernels.spmm_ell_node import (
+    BucketedStackedNodeELL, LocalBucketedNodeELL, LocalNodeELL,
+    StackedNodeELL, cheb_aggregate_node_ell, cheb_aggregate_node_ell_sharded)
 from megacrn_tpu_torch.nn.init import torch_linear
 from megacrn_tpu_torch.nn.memory import memory_init, query_memory
 from megacrn_tpu_torch.nn.seq import (decoder_init, encoder_init, init_hidden,
@@ -73,14 +83,16 @@ def sampling_mask(threshold: float, horizon: int,
 # The graph constants with their own ``.to(device, dtype, transpose=...)``.
 _PACKS = (StackedRoadPack, StackedNodeELL, BucketedStackedNodeELL)
 _NODE_PATTERNS = (NodeELLPattern, BucketedNodeELLPattern)
-_MOVABLE = _PACKS + _NODE_PATTERNS + (BlockPattern,)
+_LOCAL_NODE_ELL = (LocalNodeELL, LocalBucketedNodeELL)
+_MOVABLE = _PACKS + _NODE_PATTERNS + _LOCAL_NODE_ELL + (BlockPattern,)
 
 
 def road_supports_to(road_supports, device=None, dtype=None,
                      transpose: bool = False):
     """Move and cast a graph constant: a ``StackedRoadPack``, a list of
     ``(BlockELL, BlockELL_t)`` pairs, a stacked node-ELL pack (flat or
-    bucketed) or a ``sparse_meta`` pattern (node, bucketed or block). Index
+    bucketed), a rank's local node-ELL rows or a ``sparse_meta`` pattern
+    (node, bucketed or block). Index
     arrays move and are never cast; tile data, weights and masks are cast
     to ``dtype``. The transposed packs (and a node pattern's transposed
     side) are read only by the backward, so they move only when
@@ -137,7 +149,7 @@ class MegaCRN(nn.Module):
     def forward(self, x: torch.Tensor, y_cov: torch.Tensor,
                 road_supports=None, labels: Optional[torch.Tensor] = None,
                 batches_seen=0, generator: Optional[torch.Generator] = None,
-                training: bool = False) -> MegaCRNOutput:
+                training: bool = False, node_group=None) -> MegaCRNOutput:
         """The forward (the JAX ``forward``). With ``training=True`` and
         ``cfg.use_curriculum_learning`` the decoder feeds the label instead
         of its own output at the steps ``sampling_mask`` picks, with
@@ -149,7 +161,9 @@ class MegaCRN(nn.Module):
         (B, horizon, N, output_dim). ``road_supports``: the graph constant
         of a ``road_sparse`` or ``sparse_meta`` model (see the module
         docstring) on the model's device, the transposed side too for a
-        backward (``road_supports_to`` moves it).
+        backward (``road_supports_to`` moves it). ``node_group``: the
+        mesh's node group, set only inside a node-partitioned step, where
+        x, y_cov and labels hold this rank's node block.
         """
         cfg = self.cfg
         batch, n_nodes = x.shape[0], x.shape[2]
@@ -157,7 +171,8 @@ class MegaCRN(nn.Module):
         # Memory read / output at >= f32: upcasts bf16, passes f64 through.
         acc_dtype = torch.promote_types(torch.float32, compute_dtype)
         mem = self.memory
-        supports, aggregate = self._graph(road_supports, compute_dtype)
+        supports, aggregate = self._graph(road_supports, compute_dtype,
+                                          node_group, n_nodes)
         use_truth = None
         if training and cfg.use_curriculum_learning:
             if labels is None or generator is None:
@@ -221,13 +236,33 @@ class MegaCRN(nn.Module):
         output = torch.stack(outs, dim=1).to(acc_dtype)
         return MegaCRNOutput(output, h_att, query, pos, neg)
 
-    def _graph(self, road_supports, compute_dtype):
+    def _graph(self, road_supports, compute_dtype, node_group=None,
+               n_nodes=None):
         """(supports, aggregate) of the configured backend, with the
-        supports cast to compute_dtype."""
+        supports cast to compute_dtype; under a ``node_group`` the rank's
+        rows of them (``n_nodes`` of them) and an aggregation that crosses
+        the group."""
         cfg = self.cfg
         backend = cfg.graph_backend
         mem = self.memory
-        if backend == "dense":
+        if node_group is not None and (
+                backend == "dense_ring"
+                or (backend == "dense" and node_group.size > 1)):
+            from megacrn_tpu_torch.parallel.ring import (
+                cheb_aggregate_gathered, cheb_aggregate_ring,
+                local_meta_supports)
+
+            supports = local_meta_supports(
+                mem["Memory"], mem["We1"], mem["We2"], node_group,
+                n_nodes).to(compute_dtype)
+            agg = (cheb_aggregate_ring if backend == "dense_ring"
+                   else cheb_aggregate_gathered)
+
+            def aggregate(supports_, x, cheb_k):
+                return agg(supports_, x, cheb_k, node_group)
+
+            return supports, aggregate
+        if backend in ("dense", "dense_ring"):
             if cfg.dense_impl not in ("recursive", "stacked"):
                 raise ValueError(f"unknown dense_impl {cfg.dense_impl!r}")
             supports = meta_graph(mem["Memory"], mem["We1"],
@@ -250,7 +285,16 @@ class MegaCRN(nn.Module):
                                  "road_supports=StackedRoadPack, "
                                  "[(BlockELL, BlockELL_t), ...] or a "
                                  "stacked node-ELL pack")
-            if isinstance(road_supports, _PACKS):
+            if isinstance(road_supports, _LOCAL_NODE_ELL):
+                if node_group is None:
+                    raise ValueError(
+                        f"{type(road_supports).__name__} is one rank's rows: "
+                        "it needs the node_group of a node-partitioned step")
+
+                def aggregate(pack, x, cheb_k):
+                    return cheb_aggregate_node_ell_sharded(pack, x, cheb_k,
+                                                           node_group)
+            elif isinstance(road_supports, _PACKS):
                 if road_supports.num_supports != cfg.num_supports:
                     raise ValueError(f"{type(road_supports).__name__}"
                                      ".num_supports != cfg.num_supports")
@@ -264,7 +308,16 @@ class MegaCRN(nn.Module):
                 if len(road_supports) != cfg.num_supports:
                     raise ValueError("len(road_supports) != "
                                      "cfg.num_supports")
-                aggregate = cheb_aggregate_sparse
+                if node_group is None:
+                    aggregate = cheb_aggregate_sparse
+                else:
+                    # One rank's row-block packs (kernels.spmm.local_packs).
+                    from megacrn_tpu_torch.parallel.ring import \
+                        cheb_aggregate_sparse_sharded
+
+                    def aggregate(packs, x, cheb_k):
+                        return cheb_aggregate_sparse_sharded(
+                            packs, x, cheb_k, node_group)
             else:
                 raise TypeError(
                     f"{type(road_supports).__name__} is not a road_sparse "
@@ -278,6 +331,10 @@ class MegaCRN(nn.Module):
                                      transpose=torch.is_grad_enabled()),
                     aggregate)
         if backend == "sparse_meta":
+            if node_group is not None and node_group.size > 1:
+                raise NotImplementedError(
+                    "graph_backend='sparse_meta' under a node axis > 1 is not "
+                    "ported yet (ROADMAP Queue 1 item 11, its remainder)")
             if not isinstance(road_supports, _NODE_PATTERNS + (BlockPattern,)):
                 raise TypeError(
                     "graph_backend='sparse_meta' requires road_supports="
@@ -307,8 +364,4 @@ class MegaCRN(nn.Module):
                                                          cheb_k)
 
             return weights, aggregate
-        if backend != "dense_ring":
-            raise ValueError(f"unknown graph_backend {backend!r}")
-        raise NotImplementedError(
-            "graph_backend='dense_ring' is not ported yet (ROADMAP Queue 1 "
-            "item 11)")
+        raise ValueError(f"unknown graph_backend {backend!r}")

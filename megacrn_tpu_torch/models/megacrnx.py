@@ -74,13 +74,21 @@ class MegaCRNxOutput(NamedTuple):
     neg: Optional[torch.Tensor]
 
 
-def support_from_embeddings(emb: torch.Tensor) -> torch.Tensor:
+def support_from_embeddings(emb: torch.Tensor,
+                            data_group=None) -> torch.Tensor:
     """MegaCRNx.py:15-21: the single support softmax(relu(E E^T), dim=1);
-    3-D (B, N, e) embeddings are contracted over the batch first."""
+    3-D (B, N, e) embeddings are contracted over the batch first: over the
+    WHOLE batch, so on a data-parallel mesh (``data_group``) the ranks'
+    partial contractions are summed before the relu."""
     if emb.dim() == 2:
         logits = torch.relu(emb @ emb.T)
     else:
-        logits = torch.relu(torch.einsum("bnc,bmc->nm", emb, emb))
+        gram = torch.einsum("bnc,bmc->nm", emb, emb)
+        if data_group is not None:
+            from megacrn_tpu_torch.parallel.comm import all_reduce_sum
+
+            gram = all_reduce_sum(gram, data_group)
+        logits = torch.relu(gram)
     return torch.softmax(logits, dim=1)
 
 
@@ -124,9 +132,13 @@ class MegaCRNx(nn.Module):
                                                cfg.output_dim, g, dtype))
         self.to(device)
 
-    def forward(self, x: torch.Tensor, y_cov: torch.Tensor) -> MegaCRNxOutput:
+    def forward(self, x: torch.Tensor, y_cov: torch.Tensor,
+                data_group=None) -> MegaCRNxOutput:
         """MegaCRNx.py:180-214, deterministic. x: (B, T, N, input_dim);
-        y_cov: (B, horizon, N, ycov_dim).
+        y_cov: (B, horizon, N, ycov_dim). ``data_group``: the mesh's data
+        group inside a data-parallel step, where x holds this rank's batch
+        rows; the decoder's meta support then still contracts the whole
+        batch.
 
         ``compute_dtype="bfloat16"`` narrows the recurrence and projection
         matmul inputs; the support softmaxes and the memory read keep f32
@@ -158,7 +170,8 @@ class MegaCRNx(nn.Module):
                 raise ValueError(
                     "meta graph must derive from memory (MegaCRNx.py:194)")
             dec_emb = self.node_embeddings
-        supports = support_from_embeddings(dec_emb.to(acc)).to(cd)[None]
+        supports = support_from_embeddings(dec_emb.to(acc),
+                                           data_group).to(cd)[None]
         states = (h_t.to(cd),) * cfg.num_layers
         proj_w = self.proj[0].weight.to(cd).T
         proj_b = self.proj[0].bias.to(cd)

@@ -12,8 +12,9 @@ The extractor's BatchNorms run in train mode inside every train step and
 update their running stats; the eval step runs them in eval mode. The eval
 samples its graph without Gumbel noise (the argmax graph that serving
 uses), once per evaluation: it depends on the weights and the training
-series, not on the batch. The data mesh (``mesh=``) is not ported
-(ROADMAP Queue 1 item 11).
+series, not on the batch. On a mesh (``mesh=``) the train step is
+data-parallel (``parallel.api.make_gts_mesh_train_step``); the eval runs
+on every rank alike, and only rank 0 writes the run dir.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from megacrn_tpu_torch.models.gts import GTS
 from megacrn_tpu_torch.ops import losses
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.train import checkpoint as ckpt
-from megacrn_tpu_torch.train.logs import RunDir, echo_hparams
+from megacrn_tpu_torch.train.logs import (RunDir, echo_hparams, for_rank,
+                                          write_on_rank0)
 from megacrn_tpu_torch.train.loop import _drain, _param_dtype, to_device
 from megacrn_tpu_torch.train.optim import clip_gradients
 from megacrn_tpu_torch.train.steps import _metric_steps, summarize_eval
@@ -138,7 +140,7 @@ def make_gts_eval_step(model: GTS, scaler_mean, scaler_std,
 def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
             node_feas: np.ndarray, knn_prior: np.ndarray, run: RunDir,
             max_epochs: Optional[int] = None, initial_state=None,
-            gumbel_noise: bool = True, device=None) -> Dict:
+            gumbel_noise: bool = True, device=None, mesh=None) -> Dict:
     """Train GTS with the reference protocol.
 
     ``data``: train/val/test BatchLoaders and scaler_mean/std, as for
@@ -148,13 +150,20 @@ def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
     ``device``: the card unless the caller says otherwise. The best
     weights go to ``run.checkpoint_path`` and the BatchNorm state to
     ``run.checkpoint_path + ".bn"``, as the JAX package writes them.
+    ``mesh``: a ``parallel.mesh.Mesh`` (data axis); every rank of it calls
+    ``fit_gts`` with the same arguments.
     Returns {params, bn_state (flat JAX naming), model, test_metrics,
     best_val}.
     """
     device = resolve_device(device)
+    run = for_rank(run, mesh)
     logger = run.get_logger()
     echo_hparams(logger, model=cfg, train=train_cfg)
     seed = train_cfg.seed if train_cfg.seed is not None else int(time.time())
+    if mesh is not None:
+        from megacrn_tpu_torch.parallel.comm import broadcast_object
+
+        seed = broadcast_object(seed)  # one seed: the same graph samples
     dtype = _param_dtype(cfg)
     model = GTS(cfg, generator=torch.Generator().manual_seed(seed),
                 device="cpu", dtype=dtype)
@@ -170,9 +179,23 @@ def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
     optimizer = torch.optim.Adam(model.parameters(), lr=train_cfg.lr,
                                  eps=train_cfg.epsilon)
     mean, std = data.get("scaler_mean", 0.0), data.get("scaler_std", 1.0)
-    train_step = make_gts_train_step(model, train_cfg, optimizer,
-                                     sampling_gen, mean, std, feas, prior,
-                                     gumbel_noise)
+    if mesh is None:
+        train_step = make_gts_train_step(model, train_cfg, optimizer,
+                                         sampling_gen, mean, std, feas, prior,
+                                         gumbel_noise)
+
+        def place(arrays):
+            return arrays
+    else:
+        from megacrn_tpu_torch.parallel.api import make_gts_mesh_train_step
+        from megacrn_tpu_torch.parallel.mesh import shard_batch
+
+        train_step = make_gts_mesh_train_step(
+            model, train_cfg, optimizer, mesh, sampling_gen, mean, std, feas,
+            prior, gumbel_noise)
+
+        def place(arrays):
+            return shard_batch(arrays, mesh, nodes=False)
     eval_step = make_gts_eval_step(model, mean, std, feas, prior)
 
     def evaluate(loader):
@@ -195,7 +218,7 @@ def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
         t0 = time.perf_counter()
         tl = []
         for x, y in data["train_loader"]:
-            x0, y0 = to_device(_prepare(x, y, cfg), device)
+            x0, y0 = to_device(place(_prepare(x, y, cfg)), device)
             tl.append(train_step(x0, y0, batches_seen))
             batches_seen += 1
         train_loss = float(np.mean(
@@ -213,7 +236,7 @@ def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
                          "steps": len(tl), "sec_per_step": train_s / len(tl)})
         if val["loss"] < min_val:
             wait, min_val = 0, val["loss"]
-            save_best(epoch)
+            write_on_rank0(mesh, lambda: save_best(epoch))
         else:
             wait += 1
             if wait == train_cfg.patience:

@@ -96,6 +96,63 @@ class RunDir:
             f.write(line + "\n")
 
 
+class QuietRunDir:
+    """Rank 0's run dir seen from another rank of a mesh run: the same
+    paths (so every rank reads the checkpoint rank 0 writes), no writes."""
+
+    def __init__(self, run: RunDir):
+        self.__dict__.update(vars(run))
+
+    def get_logger(self, name: str = "megacrn_tpu_torch") -> logging.Logger:
+        logger = logging.getLogger(f"{name}:quiet:{self.path}")
+        logger.handlers.clear()
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
+        return logger
+
+    def log_metrics(self, record: dict):
+        pass
+
+    def append_scores(self, line: str):
+        pass
+
+    def append_epochlog(self, line: str):
+        pass
+
+
+def mesh_run_dir(base: str, dataset: str, mesh, model_name: str = "MegaCRN",
+                 timestring: Optional[str] = None) -> RunDir:
+    """The run dir of a CLI run: on a mesh one dir for every rank, named by
+    rank 0's clock (or ``timestring``), its sources copied by rank 0."""
+    if mesh is None:
+        return RunDir(base, dataset, model_name, timestring=timestring)
+    from megacrn_tpu_torch.parallel.comm import broadcast_object
+
+    ts = broadcast_object(timestring or time.strftime("%Y%m%d%H%M%S",
+                                                      time.localtime()))
+    return RunDir(base, dataset, model_name, snapshot_sources=mesh.rank == 0,
+                  timestring=ts)
+
+
+def for_rank(run: RunDir, mesh) -> RunDir:
+    """``run`` on rank 0 (and without a mesh), a ``QuietRunDir`` of it on
+    every other rank: only rank 0 writes the log, the metrics and the
+    checkpoint."""
+    return run if mesh is None or mesh.rank == 0 else QuietRunDir(run)
+
+
+def write_on_rank0(mesh, write) -> None:
+    """``write()`` where the run dir is written: without a mesh, or on rank
+    0 of it while the other ranks wait at a barrier until the file is whole
+    (they read it later)."""
+    if mesh is None or mesh.rank == 0:
+        write()
+    if mesh is not None:
+        from megacrn_tpu_torch.parallel.comm import barrier
+
+        barrier(mesh.world)
+
+
 def echo_hparams(logger: logging.Logger, **sections):
     """Start-of-run hyperparameter echo (model/traintest_MegaCRN.py:229-253)."""
     for section, cfg in sections.items():

@@ -14,6 +14,12 @@ without waiting for the card, the train losses stay on the card until the
 epoch ends, and eval metrics come back in blocks of 10 batches. The first
 step of the run is left out of the throughput: it carries the kernels'
 build at first use.
+
+On a mesh (``mesh=``, ``parallel.mesh.Mesh``) every rank runs ``fit``: the
+step follows the backend (``_mesh_steps``), each rank feeds its block of
+the seeded loader's batch, the eval gathers the forward outputs and runs
+the metrics unchanged, and only rank 0 writes the run dir (the others
+read its checkpoint after a barrier).
 """
 from __future__ import annotations
 
@@ -33,9 +39,11 @@ from megacrn_tpu_torch.models.megacrn import MegaCRN
 from megacrn_tpu_torch.nn.init import xavier_uniform
 from megacrn_tpu_torch.train import checkpoint as ckpt
 from megacrn_tpu_torch.train import telemetry as tele
-from megacrn_tpu_torch.train.logs import RunDir, echo_hparams
+from megacrn_tpu_torch.train.logs import (RunDir, echo_hparams, for_rank,
+                                          write_on_rank0)
 from megacrn_tpu_torch.train.optim import make_lr_scheduler, make_optimizer
-from megacrn_tpu_torch.train.steps import (make_eval_step, make_train_step,
+from megacrn_tpu_torch.train.steps import (_metric_steps, eval_metrics,
+                                           make_eval_step, make_train_step,
                                            summarize_eval)
 
 # Eval metrics cross to the host once per this many batches.
@@ -107,6 +115,52 @@ def _param_dtype(model_cfg: MegaCRNConfig) -> torch.dtype:
             else torch.float32)
 
 
+def _mesh_steps(model, model_cfg, train_cfg, optimizer, generator, mesh,
+                mean, std, road_supports):
+    """(train_step, eval_step) of a mesh run, the step chosen by the backend
+    as the JAX ``fit`` chooses it: ``dense_ring`` the ring step;
+    ``road_sparse`` the node-partitioned step on sharded packs
+    (``shard_road_packs`` / ``shard_node_ell``), else the data-parallel
+    one; ``dense`` and ``sparse_meta`` the GSPMD counterpart. The eval step
+    takes the full batch on the device, cuts the rank's block, and runs the
+    metrics on the gathered outputs."""
+    from megacrn_tpu_torch.kernels.spmm import ShardedRoadPacks
+    from megacrn_tpu_torch.kernels.spmm_ell_node import (
+        BucketedShardedNodeELL, ShardedNodeELL)
+    from megacrn_tpu_torch.parallel import api
+    from megacrn_tpu_torch.parallel.mesh import shard_batch
+
+    backend = model_cfg.graph_backend
+    args = (model, train_cfg, optimizer, mesh)
+    if backend == "dense_ring":
+        train_step = api.make_ring_train_step(*args, generator, mean, std)
+        # The eval is data-parallel: outside the node partition dense_ring
+        # is the dense path (the JAX fit does the same).
+        eval_fwd = api.make_shardmap_eval_forward(model, mesh)
+    elif backend == "road_sparse" and isinstance(road_supports, (
+            ShardedRoadPacks, ShardedNodeELL, BucketedShardedNodeELL)):
+        train_step = api.make_road_node_train_step(*args, road_supports,
+                                                   generator, mean, std)
+        eval_fwd = api.make_road_node_eval_forward(model, mesh,
+                                                   road_supports)
+    elif backend == "road_sparse":
+        train_step = api.make_shardmap_train_step(
+            *args, generator, mean, std, road_supports=road_supports)
+        eval_fwd = api.make_shardmap_eval_forward(model, mesh, road_supports)
+    else:
+        train_step = api.make_sharded_train_step(
+            *args, generator, mean, std, road_supports=road_supports)
+        eval_fwd = api.make_sharded_eval_forward(model, mesh, road_supports)
+    steps = _metric_steps(model_cfg.horizon)
+
+    @torch.no_grad()
+    def eval_step(x0, y0, y_cov):
+        x, yc = shard_batch((x0, y_cov), mesh, nodes=eval_fwd.shard_nodes)
+        return eval_metrics(eval_fwd(x, yc), y0, train_cfg, mean, std, steps)
+
+    return train_step, eval_step
+
+
 def fit(
     model_cfg: MegaCRNConfig,
     train_cfg: TrainConfig,
@@ -124,6 +178,7 @@ def fit(
     profile_steps: int = 10,
     log_compiled_memory: bool = True,
     device=None,
+    mesh=None,
 ) -> Dict:
     """Train MegaCRN with the reference protocol.
 
@@ -145,6 +200,9 @@ def fit(
     (e.g. the EXPY-TKY numpy metrics).
     ``device``: where to train; the card unless the caller says otherwise
     (``resolve_device``).
+    ``mesh``: a ``parallel.mesh.Mesh``; every rank of it calls ``fit``
+    with the same arguments (``road_supports``: ``shard_road_packs`` or
+    ``shard_node_ell`` output for the node-partitioned road step).
     Returns {params (flat JAX naming, numpy), model, best_val, test_metrics,
     epochs_run}.
     """
@@ -153,10 +211,15 @@ def fit(
             f"ckpt_backend={ckpt_backend!r} needs the JAX package (Orbax); "
             "the port writes .npz checkpoints (ROADMAP Queue 1 item 4)")
     device = resolve_device(device)
+    run = for_rank(run, mesh)
     logger = run.get_logger()
     echo_hparams(logger, model=model_cfg, train=train_cfg)
 
     seed = train_cfg.seed if train_cfg.seed is not None else int(time.time())
+    if mesh is not None:
+        from megacrn_tpu_torch.parallel import comm
+
+        seed = comm.broadcast_object(seed)  # one seed: replicated coins
     init_gen = torch.Generator().manual_seed(seed)
     dtype = _param_dtype(model_cfg)
     model = MegaCRN(model_cfg, generator=init_gen, device="cpu", dtype=dtype)
@@ -196,10 +259,24 @@ def fit(
             std = _scalar_or_array(meta["scaler_std_arr"])
         logger.info("resumed from", run.checkpoint_path, "epoch", start_epoch)
 
-    train_step = make_train_step(model, train_cfg, optimizer, sampling_gen,
-                                 mean, std, road_supports=road_supports)
-    eval_step = make_eval_step(model, train_cfg, mean, std,
-                               road_supports=road_supports)
+    if mesh is None:
+        train_step = make_train_step(model, train_cfg, optimizer,
+                                     sampling_gen, mean, std,
+                                     road_supports=road_supports)
+        eval_step = make_eval_step(model, train_cfg, mean, std,
+                                   road_supports=road_supports)
+
+        def place(arrays):
+            return arrays
+    else:
+        from megacrn_tpu_torch.parallel.mesh import shard_batch
+
+        train_step, eval_step = _mesh_steps(
+            model, model_cfg, train_cfg, optimizer, sampling_gen, mesh, mean,
+            std, road_supports)
+
+        def place(arrays):
+            return shard_batch(arrays, mesh, nodes=train_step.shard_nodes)
 
     def run_eval(loader):
         t = time.perf_counter()
@@ -237,8 +314,8 @@ def fit(
             data["train_loader"].set_epoch(epoch)
         for x, y in data["train_loader"]:
             t_up = time.perf_counter()
-            x0, y0, y_cov = to_device(prepare_x_y(
-                x, y, model_cfg.input_dim, model_cfg.output_dim), device)
+            x0, y0, y_cov = to_device(place(prepare_x_y(
+                x, y, model_cfg.input_dim, model_cfg.output_dim)), device)
             upload_s += time.perf_counter() - t_up
             train_losses.append(train_step(x0, y0, y_cov, batches_seen))
             batches_seen += 1
@@ -297,7 +374,7 @@ def fit(
         if val["loss"] < min_val_loss:
             wait = 0
             min_val_loss = val["loss"]
-            ckpt.save_checkpoint(
+            write_on_rank0(mesh, lambda: ckpt.save_checkpoint(
                 run.checkpoint_path,
                 flat_from_state_dict(model.state_dict(), model_cfg.num_layers),
                 ckpt.optimizer_state(optimizer, scheduler, named),
@@ -309,7 +386,7 @@ def fit(
                 # (its state for epoch+1) and the scaler stats as arrays.
                 arrays={"sampling_rng_state": sampling_gen.get_state(),
                         "scaler_mean_arr": np.asarray(mean),
-                        "scaler_std_arr": np.asarray(std)})
+                        "scaler_std_arr": np.asarray(std)}))
         else:
             wait += 1
             if wait == train_cfg.patience:

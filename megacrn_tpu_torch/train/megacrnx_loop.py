@@ -20,8 +20,11 @@ The ablation-generation harness differs from the canonical one
   predictions (``:199-207``).
 
 The losses of a step stay on the card until the epoch ends (one host sync
-an epoch); the data mesh (``mesh=``) is not ported (ROADMAP Queue 1
-item 11).
+an epoch). On a mesh (``mesh=``) full-size batches train data-parallel
+(``parallel.api.make_megacrnx_mesh_train_step``); the drop_last=False tail
+batch, whose size need not divide the data axis, runs the single-device
+step on every rank: the same math either way. The eval runs on every
+rank alike, and only rank 0 writes the run dir.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ from megacrn_tpu_torch.models.megacrnx import (MegaCRNx, MegaCRNxConfig,
 from megacrn_tpu_torch.ops import losses, metrics
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.train import checkpoint as ckpt
-from megacrn_tpu_torch.train.logs import RunDir, echo_hparams
+from megacrn_tpu_torch.train.logs import (RunDir, echo_hparams, for_rank,
+                                          write_on_rank0)
 from megacrn_tpu_torch.train.loop import (_param_dtype,
                                           _reinit_xavier_uniform, to_device)
 
@@ -170,7 +174,7 @@ class _XYCovLoader:
 def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
                  data: Dict, run: RunDir, *,
                  max_epochs: Optional[int] = None, initial_params=None,
-                 device=None) -> Dict:
+                 device=None, mesh=None) -> Dict:
     """Train MegaCRNx with the model_futurework protocol.
 
     ``data`` keys: ``x_trainval`` (SCALED), ``y_trainval`` (raw),
@@ -179,10 +183,13 @@ def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
     ``data.windowing.ratio_windows``). ``initial_params``: a start point in
     the JAX package's flat naming, in place of the seeded init. ``device``:
     the card unless the caller says otherwise (``resolve_device``).
+    ``mesh``: a ``parallel.mesh.Mesh``; every rank of it calls
+    ``fit_megacrnx`` with the same arguments.
     Returns {params (best, flat JAX naming), model, best_val,
     test_metrics, epochs_run}.
     """
     device = resolve_device(device)
+    run = for_rank(run, mesh)
     logger = run.get_logger()
     echo_hparams(logger, model=model_cfg, train=train_cfg)
 
@@ -216,7 +223,21 @@ def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
 
     train_step = make_megacrnx_train_step(model, train_cfg, optimizer, mean,
                                           std)
+    mesh_step = None
+    if mesh is not None:
+        from megacrn_tpu_torch.parallel.api import \
+            make_megacrnx_mesh_train_step
+        from megacrn_tpu_torch.parallel.mesh import shard_batch
+
+        mesh_step = make_megacrnx_mesh_train_step(model, train_cfg, optimizer,
+                                                  mesh, mean, std)
     eval_step = make_megacrnx_eval_step(model, train_cfg, mean, std)
+
+    def train_on(arrays):
+        if mesh_step is not None and len(arrays[0]) % mesh.data == 0:
+            return mesh_step(*to_device(shard_batch(arrays, mesh,
+                                                    nodes=False), device))
+        return train_step(*to_device(arrays, device))
 
     def save_best(epoch, best):
         ckpt.save_checkpoint(
@@ -234,7 +255,7 @@ def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
         t0 = time.perf_counter()
         sums, n = 0.0, 0
         for arrays in train_iter:
-            vals = train_step(*to_device(arrays, device))
+            vals = train_on(arrays)
             sums = sums + vals.double() * arrays[0].shape[0]
             n += arrays[0].shape[0]
         train_loss = (sums / n).tolist()  # the epoch's one host sync
@@ -256,7 +277,7 @@ def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
         if val["loss"] < min_val_loss:
             wait = 0
             min_val_loss = val["loss"]
-            save_best(epoch, min_val_loss)
+            write_on_rank0(mesh, lambda: save_best(epoch, min_val_loss))
         else:
             wait += 1
             if wait == train_cfg.patience:

@@ -1,8 +1,8 @@
 """The port's traintest CLI (megacrn_tpu_torch.cli.traintest) end to end on
 the CPU (``--device cpu``): every ported capability reachable by flag, the
 run-dir artifact contract, and every flag of the JAX CLI that the port does
-not have yet (dense_ring, the mesh, Orbax) refused with its ROADMAP
-item."""
+not have yet (Orbax, ``sparse_meta`` on a node axis) refused with its
+ROADMAP item; the mesh runs are in tests/test_torch_mesh_harness.py."""
 import json
 import os
 
@@ -108,17 +108,21 @@ def test_cli_eval_aggregation_concat(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--graph_backend", "dense_ring"], "item 11"),
-    (["--mesh_data", "2"], "item 11"),
-    (["--mesh_node", "2"], "item 11"),
+    # dense_ring and the mesh are ported: with them only Orbax refuses.
+    (["--graph_backend", "dense_ring", "--ckpt_backend", "orbax"], "item 4"),
+    (["--mesh_data", "2", "--ckpt_backend", "orbax"], "item 4"),
+    (["--graph_backend", "sparse_meta", "--mesh_node", "2"], "item 11"),
     (["--ckpt_backend", "orbax"], "item 4"),
 ])
 def test_cli_unported_flags_exit_naming_their_roadmap_item(tmp_path, flags,
                                                            item):
     with pytest.raises(SystemExit,
-                       match=f"not ported yet: .*ROADMAP Queue 1 {item} "):
+                       match=f"not ported yet: .*ROADMAP Queue 1 {item} ") as e:
         _run(tmp_path, flags)
     assert os.listdir(tmp_path) == []
+    refused = str(e.value)
+    assert "dense_ring" not in refused and "--mesh_data" not in refused
+    assert refused.count("item") == 1
 
 
 @pytest.mark.parametrize("flags,backend,constant,knobs", [

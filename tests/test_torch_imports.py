@@ -68,8 +68,34 @@ def test_port_imports_no_jax_no_jax_package_and_no_pandas():
                 "megacrn_tpu_torch.train.megacrnx_loop",
                 "megacrn_tpu_torch.train.gts_loop",
                 "megacrn_tpu_torch.cli.traintest_megacrnx",
-                "megacrn_tpu_torch.cli.traintest_gts"):
+                "megacrn_tpu_torch.cli.traintest_gts",
+                # the mesh
+                "megacrn_tpu_torch.parallel.comm",
+                "megacrn_tpu_torch.parallel.mesh",
+                "megacrn_tpu_torch.parallel.multihost",
+                "megacrn_tpu_torch.parallel.launch",
+                "megacrn_tpu_torch.parallel.ring",
+                "megacrn_tpu_torch.parallel.api"):
         assert mod in res["modules"]
+
+
+def test_spawned_ranks_import_no_jax(tmp_path):
+    """A rank that ``parallel.launch`` spawns from this process (which has
+    JAX loaded) starts afresh: neither JAX nor the JAX package reaches
+    it."""
+    import json
+
+    import jax  # noqa: F401  (loaded in the parent on purpose)
+
+    import torch_mesh_ranks
+    from megacrn_tpu_torch.parallel import launch
+
+    launch.spawn(torch_mesh_ranks.record_imports, 2, args=(str(tmp_path),),
+                 coordinator=f"file://{tmp_path / 'rendezvous'}",
+                 device="cpu")
+    for r in (0, 1):
+        with open(tmp_path / f"imports{r}.json") as f:
+            assert json.load(f) == []
 
 
 def test_chip_smoke_imports_no_jax():

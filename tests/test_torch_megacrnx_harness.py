@@ -224,9 +224,11 @@ def test_cli_writes_every_artifact_and_refuses_the_mesh(tmp_path):
     for suffix in (".npz", "_logging.txt", "_epochlog.txt", "_scores.txt",
                    "metrics.jsonl", "src_snapshot"):
         assert any(f.endswith(suffix) for f in files), suffix
+    # The mesh is ported (tests/test_torch_mesh_harness.py); one it cannot
+    # build is refused before any rank starts.
     for flag in ("--mesh_data", "--mesh_node"):
-        with pytest.raises(SystemExit, match="item 11"):
-            tcli.main(BASE + [flag, "2", "--device", "cpu"])
+        with pytest.raises(SystemExit, match="--mesh_data and --mesh_node"):
+            tcli.main(BASE + [flag, "0", "--device", "cpu"])
 
 
 def write_pandas_fixed(path, values, index, columns, blocks=None):

@@ -232,10 +232,30 @@ def test_state_dict_names_round_trip_through_jax_naming():
     assert model.proj[0].weight.shape == (cfg.output_dim, cfg.decoder_dim)
 
 
-@pytest.mark.parametrize("backend", ["dense_ring"])
+@pytest.mark.parametrize("backend", ["sparse_meta"])
 def test_backends_not_ported_yet_raise(backend):
+    """``sparse_meta`` on a node axis > 1 is item 11's remainder: the
+    forward refuses it before any collective (a two-rank node group that
+    needs no process group to be refused)."""
+    from megacrn_tpu_torch.parallel.comm import Group
+
     cfg = MegaCRNConfig(num_nodes=8, rnn_units=4, mem_num=2, mem_dim=4,
                         horizon=2, seq_len=2, graph_backend=backend)
     model = MegaCRN(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 2, 8, 1), torch.zeros(1, 2, 8, 1))
+        model(torch.zeros(1, 2, 4, 1), torch.zeros(1, 2, 4, 1),
+              node_group=Group(None, (0, 1), 0))
+
+
+def test_dense_ring_outside_a_mesh_is_the_dense_path():
+    """Outside a node-partitioned step ``dense_ring`` runs the dense
+    backend's math, as in the JAX package."""
+    kw = dict(num_nodes=8, rnn_units=4, mem_num=2, mem_dim=4, horizon=2,
+              seq_len=2)
+    dense = MegaCRN(MegaCRNConfig(**kw), device="cpu")
+    ring = MegaCRN(MegaCRNConfig(**kw, graph_backend="dense_ring"),
+                   device="cpu")
+    ring.load_state_dict(dense.state_dict())
+    x = torch.randn(2, 2, 8, 1, generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(ring(x, x).output, dense(x, x).output,
+                               rtol=0, atol=0)
