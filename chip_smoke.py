@@ -106,17 +106,40 @@ mesh step held against the single-device step on the card (losses rtol
     whole-batch step's distance is printed). Six ranks, a (2, 3) mesh:
     (b) the node partition at the METR-LA width (69 nodes a rank), 3
     steps each on block-ELL packs (the kernel's launches non-zero on every
-    rank), node-ELL flat and bucketed, dense and dense_ring; (d) one epoch
-    of ``cli.traintest`` with ``road_sparse`` and with ``dense_ring`` on
-    that mesh, inside the group, their test metrics read from rank 0's
-    run dir. Each step's ms and peak memory per rank, and the collectives
-    and their host staging, printed: correctness only (the ranks
-    time-share the card).
+    rank), node-ELL flat and bucketed, dense, dense_ring, and
+    ``sparse_meta`` node flat, node bucketed and block (each rank's rows
+    of the learned edge pattern); (d) one epoch of ``cli.traintest`` with
+    ``road_sparse`` and with ``dense_ring`` on that mesh, inside the
+    group, their test metrics read from rank 0's run dir. Each step's ms
+    and peak memory per rank, and the collectives (also a step) and their
+    host staging, printed: correctness only (the ranks time-share the
+    card).
+
+The offline workflow and the host utilities:
+
+20. (a) ``cli.generate_data --synthetic --num_nodes 207 --num_steps
+    4000`` (the series is the depth: 44 train steps an epoch); (b)
+    ``cli.traintest --dataset METRLA --data_dir <(a)> --graph_backend
+    road_sparse --adj_path <N=207 synthetic road graph> --ckpt_backend
+    orbax`` at the METR-LA width through the block-COO kernel, 2 epochs
+    in one go, and 1 epoch then ``--resume`` for the 2nd: the resumed
+    epoch-2 losses and final weights within RESUME_TOL of the
+    uninterrupted run's, ``spmm_coo`` launched in each run, each
+    checkpoint a torch.distributed.checkpoint directory; (c)
+    ``cli.summary`` of MegaCRN, MegaCRNx and GTS at full width, their
+    parameter counts; on fit (a)'s configuration (EXPY-TKY, the block-COO
+    pack): (d) 20 train steps fed from the loader, plain and through
+    ``train.prefetch.device_prefetch``, in turns, ms a step and the
+    host's ms to get a batch, the batches equal both ways; (e) the host
+    library (``data.native``, required to build) against numpy on fit
+    (a)'s arrays, bit-equal, ms each; (f) the train step under
+    ``train.debug.checkified``, finite (ms with and without) and with a
+    NaN in x, which must raise naming the op.
 
 The last lines: a JSON line of phases 11-16's paths, one of their ops,
 one of the two families' paths (with phase 7's gradient holds), one of the
-mesh, one of the kernels, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+mesh, one of phase 20, one of the kernels, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2122,8 +2145,23 @@ def _mesh_road(spec, cfg, mesh):
     road = spec.get("road")
     if road is None:
         return None
-    sups = list(dual_random_walk_supports(synthetic_road_adjacency(
-        cfg.num_nodes, avg_degree=8, seed=0)))
+    adj = synthetic_road_adjacency(cfg.num_nodes, avg_degree=8, seed=0)
+    if road.startswith("meta_"):
+        # sparse_meta: the whole pattern (the CLI's: symmetrised, self
+        # loops); on a node axis the sharded step cuts each rank's rows.
+        from megacrn_tpu_torch.kernels import sparse_graph as sg
+        from megacrn_tpu_torch.kernels import sparse_graph_node as sgn
+
+        pat = ((adj != 0) | (adj.T != 0)).astype(np.float32)
+        np.fill_diagonal(pat, 1.0)
+        if road == "meta_block":
+            return sg.build_block_pattern(pat)
+        if road == "meta_node_flat":
+            return sgn.build_node_pattern(pat, max_buckets=1)
+        const = sgn.build_node_pattern_bucketed(pat)
+        require(len(const.nbr) > 1, f"{spec['name']}: one bucket")
+        return const
+    sups = list(dual_random_walk_supports(adj))
     buckets = 1 if road == "node_ell_flat" else 4
     node = mesh is not None and mesh.node > 1
     if road == "coo":
@@ -2257,7 +2295,8 @@ def mesh_case(spec, dev, mesh=None):
         if mesh is None:
             step = make_train_step(model, tcfg, opt, gen,
                                    road_supports=const)
-        elif spec.get("road") not in (None, "coo") and mesh.node > 1:
+        elif (spec["backend"] == "road_sparse"
+              and spec.get("road") != "coo" and mesh.node > 1):
             step = api.make_road_node_train_step(model, tcfg, opt, mesh,
                                                  const, gen)
         elif spec["backend"] == "dense_ring":
@@ -2266,7 +2305,8 @@ def mesh_case(spec, dev, mesh=None):
             step = api.make_shardmap_train_step(model, tcfg, opt, mesh, gen,
                                                 road_supports=const)
         else:
-            step = api.make_sharded_train_step(model, tcfg, opt, mesh, gen)
+            step = api.make_sharded_train_step(model, tcfg, opt, mesh, gen,
+                                               road_supports=const)
 
         def run(arrays, i):
             return step(*arrays, first + i)
@@ -2410,7 +2450,9 @@ def hold_mesh(name, ranks, single, kernel=None):
                                     for res in ranks],
            "peak_GiB_per_rank": [res[name]["peak_GiB"] for res in ranks],
            "single_ms": float(np.median(single["ms"])),
-           "calls_rank0": r0["calls"], "staged_rank0": r0["staged"]}
+           "calls_rank0": r0["calls"], "staged_rank0": r0["staged"],
+           "calls_per_step_rank0": {k: v / len(r0["losses"])
+                                    for k, v in r0["calls"].items()}}
     print(f"mesh {name}: losses {[round(v, 6) for v in r0['losses']]} vs "
           f"single {[round(v, 6) for v in single['losses']]}, worst state "
           f"element {worst:.4g} of its limit; ms a step per rank "
@@ -2418,7 +2460,8 @@ def hold_mesh(name, ranks, single, kernel=None):
           f"{out['single_ms']:.1f}); peak GiB per rank "
           f"{[round(v, 3) for v in out['peak_GiB_per_rank']]}; launches per "
           f"rank {counts} (single {single['launches']}); collectives rank 0 "
-          f"{r0['calls']}, staged through host {r0['staged']}")
+          f"{r0['calls']} ({out['calls_per_step_rank0']} a step), staged "
+          f"through host {r0['staged']}")
     return out
 
 
@@ -2469,6 +2512,10 @@ def phase_mesh(sp, se, d, dev):
                     road="node_ell_bucketed"),
                dict(metr, name="b_node_dense", backend="dense"),
                dict(metr, name="b_node_dense_ring", backend="dense_ring")]
+    # sparse_meta: each rank's rows of the learned edge pattern (69 of 207).
+    spawn_b += [dict(metr, name=f"b_node_sparse_meta_{impl}",
+                     backend="sparse_meta", road=f"meta_{impl}")
+                for impl in ("node_flat", "node_bucketed", "block")]
     cli_base = ["--dataset", "SYNTH", "--synth_steps", "1000", "--epochs",
                 "1", "--seed", "0", "--mesh_data", "2", "--mesh_node", "3"]
     for backend in ("road_sparse", "dense_ring"):
@@ -2533,6 +2580,302 @@ def phase_mesh(sp, se, d, dev):
                 for c in a["launches_per_rank"]),
             f"mesh (a): spmm_coo per rank {a['launches_per_rank']} against "
             f"the single-device step's {a['single_launches']}")
+    return out
+
+
+# --- Phase 20: the offline workflow at the METR-LA width (N=207, 12->12,
+# units 64, memory 20x64): generate_data -> traintest on road_sparse (the
+# block-COO kernel) with directory checkpoints -> resume -> summary; then
+# the host-side utilities on fit (a)'s EXPY-TKY arrays: device_prefetch,
+# the host library, checkified.
+
+# The generated series is the depth: 4,000 five-minute steps give 2,784
+# train windows, 44 train steps an epoch at batch 64 (METR-LA has 34,272).
+OFFLINE_STEPS = 4000
+PREFETCH_STEPS = 20
+
+
+def _epochs(records):
+    return [r for r in records if "val" in r]
+
+
+def offline_runs(sp, se, d, data_dir, adj_path):
+    """(b): ``traintest`` on the generated splits through the block-COO
+    kernel with ``--ckpt_backend orbax``: 2 epochs in one go, and 1 epoch
+    then ``--resume`` for the 2nd; the resumed run held to the
+    uninterrupted one as fit (c) holds ``.npz``."""
+    from megacrn_tpu_torch.cli import traintest
+
+    base = ["--dataset", "METRLA", "--data_dir", data_dir,
+            "--graph_backend", "road_sparse", "--adj_path", adj_path,
+            "--ckpt_backend", "orbax", "--seed", "0"]
+    cfg, tcfg = traintest.configs_from_args(
+        traintest.build_parser().parse_args(base))
+    require((cfg.num_nodes, cfg.seq_len, cfg.horizon, cfg.rnn_units,
+             cfg.mem_num, cfg.mem_dim, tcfg.batch_size)
+            == (207, 12, 12, 64, 20, 64, 64),
+            "phase 20 is not at the METR-LA width")
+    whole_dir, cut_dir = (os.path.join(d, f"offline_{k}")
+                          for k in ("whole", "cut"))
+    runs = {}
+    for name, flags, save in (("whole_2_epochs", ["--epochs", "2"],
+                               whole_dir),
+                              ("first_epoch", ["--epochs", "1"], cut_dir),
+                              ("resumed_epoch", ["--epochs", "2",
+                                                 "--resume"], cut_dir)):
+        result, launches, wall, peak = run_cli(
+            sp, se, base + flags + ["--save_dir", save])
+        require(launches["spmm_coo"] > 0,
+                f"phase 20 {name}: no spmm_coo launch: {launches}")
+        require(launches["spmm_ell"] == 0, f"phase 20 {name}: spmm_ell")
+        runs[name] = (result, launches, wall, peak)
+    records = {}
+    for name, save in (("whole", whole_dir), ("cut", cut_dir)):
+        records[name] = fit_records(f"phase 20 {name}", save)
+        run = run_dir_of(save)
+        (ckpt,) = [f for f in os.listdir(run) if f.endswith(".npz")]
+        require(os.path.isfile(os.path.join(run, ckpt, ".metadata")),
+                f"phase 20 {name}: {ckpt} is no checkpoint directory")
+    whole, cut = (_epochs(records[k]) for k in ("whole", "cut"))
+    require([r["epoch"] for r in cut] == [1, 2],
+            "phase 20: the resumed run did not continue its run dir")
+    loss_diff = max(
+        abs(c[k] - w[k]) / max(abs(w[k]), 1e-30)
+        for c, w in ((cut[1], whole[1]), (cut[1]["val"], whole[1]["val"]))
+        for k in (("train_loss",) if "train_loss" in w else w))
+    worst, worst_key = 0.0, None
+    want = runs["whole_2_epochs"][0]["params"]
+    got = runs["resumed_epoch"][0]["params"]
+    for k, p in want.items():
+        rel = float(np.abs(got[k] - p).max() / max(np.abs(p).max(), 1e-30))
+        if rel >= worst:
+            worst, worst_key = rel, k
+    print(f"phase 20 (b): resumed 1 -> 2 epochs vs 2 in one go: epoch-2 "
+          f"losses within {loss_diff:.3e} relative, params within "
+          f"{worst:.3e} of max|p| ({worst_key})")
+    require(loss_diff <= RESUME_TOL and worst <= RESUME_TOL,
+            f"phase 20: the resumed run differs (losses {loss_diff:.3e}, "
+            f"params {worst:.3e} at {worst_key}; limit {RESUME_TOL:g})")
+    for name, recs in (("whole", records["whole"]),
+                       ("cut", records["cut"])):
+        print_epochs(f"phase 20 {name}", recs)
+    out = {name: {"launches": launches, "wall_s": wall, "peak_GiB": peak}
+           for name, (_, launches, wall, peak) in runs.items()}
+    out["sec_per_step"] = [r["sec_per_step"] for r in whole]
+    out["resumed_sec_per_step"] = cut[1]["sec_per_step"]
+    out["upload_s"] = [r["upload_seconds"] for r in whole]
+    out["resume_loss_rel_diff"] = loss_diff
+    out["resume_param_rel_diff"] = worst
+    out["test_mae"] = runs["whole_2_epochs"][0]["test_metrics"]["mae"]
+    for name, res in out.items():
+        if isinstance(res, dict):
+            print(f"phase 20 (b) {name}: wall {res['wall_s']:.2f} s, "
+                  f"launches {res['launches']}, peak {res['peak_GiB']:.3f} "
+                  f"GiB")
+    print(f"phase 20 (b): sec/step {out['sec_per_step']} (resumed epoch "
+          f"{out['resumed_sec_per_step']:.5f}), host upload s an epoch "
+          f"{out['upload_s']}, test mae {out['test_mae']:.4f}")
+    return out
+
+
+def prefetch_runs(step, loader, cfg, dev):
+    """(d): PREFETCH_STEPS train steps fed from fit (a)'s loader, plain
+    (``train.loop.to_device``, as fit feeds the card) and through
+    ``device_prefetch``, in turns; the same batches both ways."""
+    import itertools
+
+    from megacrn_tpu_torch.data.loader import prepare_x_y
+    from megacrn_tpu_torch.train.loop import to_device
+    from megacrn_tpu_torch.train.prefetch import device_prefetch
+
+    def host_batches():
+        for epoch in itertools.count():
+            loader.set_epoch(epoch)
+            for x, y in loader:
+                yield prepare_x_y(x, y, cfg.input_dim, cfg.output_dim)
+
+    def feed(prefetch):
+        src = itertools.islice(host_batches(), PREFETCH_STEPS)
+        if prefetch:
+            return device_prefetch(src, device=dev)
+        return (to_device(b, dev) for b in src)
+
+    def run(prefetch):
+        torch.cuda.synchronize()
+        it, losses, fetch_s = feed(prefetch), [], 0.0
+        t0 = time.perf_counter()
+        for i in range(PREFETCH_STEPS):
+            t_f = time.perf_counter()
+            batch = next(it)
+            fetch_s += time.perf_counter() - t_f
+            losses.append(step(*batch, i))
+        torch.stack(losses).cpu()
+        total = time.perf_counter() - t0
+        return 1e3 * total / PREFETCH_STEPS, 1e3 * fetch_s / PREFETCH_STEPS
+
+    run(False)  # warm-up
+    times = {"plain": [], "prefetch": []}
+    for prefetch in (False, True, True, False):
+        ms, fetch = run(prefetch)
+        times["prefetch" if prefetch else "plain"].append((ms, fetch))
+    same = all(
+        torch.equal(a, b) for pa, pb in zip(feed(False), feed(True))
+        for a, b in zip(pa, pb))
+    torch.cuda.synchronize()
+    require(same, "phase 20 (d): the prefetched batches differ")
+    out = {k: {"ms_per_step": [t[0] for t in v],
+               "host_fetch_ms_per_step": [t[1] for t in v]}
+           for k, v in times.items()}
+    print(f"phase 20 (d): {PREFETCH_STEPS} EXPY-TKY block-COO train steps "
+          f"fed from the loader, ms a step (host clock, one sync at the "
+          f"end) plain {out['plain']['ms_per_step']} vs device_prefetch "
+          f"{out['prefetch']['ms_per_step']}; host ms a step to get a "
+          f"batch (loader, prepare, upload) plain "
+          f"{out['plain']['host_fetch_ms_per_step']} vs prefetch "
+          f"{out['prefetch']['host_fetch_ms_per_step']}; batches equal")
+    return out
+
+
+def native_runs(month, xs):
+    """(e): the host library against numpy on fit (a)'s arrays: the
+    windows of one EXPY-TKY month (his 6 + seq 6) and the train windows'
+    reshuffle gather; bit-equal results, host ms (median of 5)."""
+    from megacrn_tpu_torch.data import native
+
+    require(native.available(), "phase 20 (e): the host library did not "
+                                "build (g++ and native/megacrn_data.cc)")
+    anchors = np.arange(0, month.shape[0] - 12 + 1)
+    offsets = np.arange(12)
+    perm = np.random.default_rng(0).permutation(len(xs))
+    out = {}
+    for name, fn, plain in (
+            ("window_gather", lambda: native.window_gather(month, anchors,
+                                                           offsets),
+             lambda: month[anchors[:, None] + offsets[None, :]]),
+            ("index_gather", lambda: native.index_gather(xs, perm),
+             lambda: xs[perm])):
+        require(np.array_equal(fn(), plain()),
+                f"phase 20 (e): {name} differs from numpy")
+        ms = []
+        for f in (fn, plain):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                f()
+                times.append(1e3 * (time.perf_counter() - t0))
+            ms.append(float(np.median(times)))
+        nbytes = fn().nbytes
+        out[name] = {"native_ms": ms[0], "numpy_ms": ms[1],
+                     "speedup": ms[1] / ms[0], "out_MB": nbytes / 1e6}
+        print(f"phase 20 (e): {name} of {nbytes / 1e6:.1f} MB: native "
+              f"{ms[0]:.3f} ms, numpy {ms[1]:.3f} ms, speed-up "
+              f"{ms[1] / ms[0]:.2f}x; bit-equal")
+    return out
+
+
+def checkified_runs(step, batch):
+    """(f): the train step under ``checkified`` on a finite batch (its ms
+    with and without the wrapper), then with a NaN put into x: it must
+    raise, naming the op."""
+    from megacrn_tpu_torch.train.debug import checkified
+
+    x, y, yc = batch
+    plain = host_ms(lambda: step(x, y, yc, 0).item(), reps=3)
+    checked = host_ms(lambda: checkified(step)(x, y, yc, 0).item(), reps=2)
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    try:
+        checkified(step)(bad, y, yc, 0)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    require(raised is not None and "nan generated by op" in raised,
+            f"phase 20 (f): a NaN in x did not raise: {raised}")
+    print(f"phase 20 (f): a finite train step {plain:.3f} ms, under "
+          f"checkified {checked:.3f} ms; with a NaN in x: {raised}")
+    return {"step_ms": plain, "checkified_ms": checked, "raised": raised}
+
+
+def phase_offline(sp, se, d, dev, stacked):
+    """Phase 20: (a) ``generate_data --synthetic`` at N=207; (b)
+    ``offline_runs``; (c) ``summary`` of each family at its full width;
+    (d)-(f) on the fit (a) configuration (EXPY-TKY, the block-COO
+    ``stacked`` pack): ``prefetch_runs``, ``native_runs``,
+    ``checkified_runs``."""
+    import io
+
+    from megacrn_tpu_torch.cli import generate_data, summary, traintest
+    from megacrn_tpu_torch.data.loader import prepare_x_y
+    from megacrn_tpu_torch.data.synthetic import (synthetic_road_adjacency,
+                                                  synthetic_speed_series)
+    from megacrn_tpu_torch.data.windowing import weekday_slot
+    from megacrn_tpu_torch.models.megacrn import MegaCRN
+    from megacrn_tpu_torch.train.loop import to_device
+    from megacrn_tpu_torch.train.optim import make_optimizer
+    from megacrn_tpu_torch.train.steps import make_train_step
+
+    out = {}
+    data_dir = os.path.join(d, "metrla_synth")
+    t0 = time.perf_counter()
+    generate_data.main(["--synthetic", "--num_nodes", "207", "--num_steps",
+                        str(OFFLINE_STEPS), "--output_dir", data_dir])
+    out["generate_s"] = time.perf_counter() - t0
+    shapes = {}
+    for cat in ("train", "val", "test"):
+        with np.load(os.path.join(data_dir, f"{cat}.npz")) as z:
+            require(z["x"].shape[1:] == z["y"].shape[1:] == (12, 207, 2)
+                    and np.isfinite(z["x"]).all(),
+                    f"phase 20 (a): {cat}.npz x {z['x'].shape}")
+            shapes[cat] = z["x"].shape[0]
+    out["windows"] = shapes
+    print(f"phase 20 (a): generate_data --synthetic N=207, "
+          f"{OFFLINE_STEPS} steps: windows {shapes}, "
+          f"{out['generate_s']:.2f} s")
+    adj_path = os.path.join(d, "metr-la_adj01.npy")
+    np.save(adj_path, synthetic_road_adjacency(207, avg_degree=8, seed=0))
+    out["traintest"] = offline_runs(sp, se, d, data_dir, adj_path)
+
+    out["summary"] = {}
+    for family in ("MEGACRN", "MEGACRNX", "GTS"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            count = summary.main(["--model", family])
+        lines = buf.getvalue().splitlines()
+        require(lines[0].startswith("forward output shape: (2, 12, 207, 1)")
+                and count > 0, f"phase 20 (c): {family}: {lines[:2]}")
+        out["summary"][family] = count
+        print(f"phase 20 (c): summary {family}: {lines[0]}; {count} "
+              f"trainable parameters in {len(lines) - 4} arrays")
+
+    # (d)-(f) on fit (a)'s configuration and data.
+    args = traintest.build_parser().parse_args(
+        ["--dataset", "EXPYTKY", "--graph_backend", "road_sparse",
+         "--seed", "0"])
+    cfg, tcfg = traintest.configs_from_args(args)
+    data = traintest._load_expytky_data(args, cfg, tcfg)
+    model = MegaCRN(cfg, generator=torch.Generator().manual_seed(0),
+                    device=dev)
+    step = make_train_step(model, tcfg,
+                           make_optimizer(model.parameters(), tcfg),
+                           torch.Generator(device=dev).manual_seed(2),
+                           road_supports=stacked)
+    reset_launches(sp.spmm_coo, se.spmm)  # --- this path, counted ---
+    out["prefetch"] = prefetch_runs(step, data["train_loader"], cfg, dev)
+    out["prefetch"]["launches"] = read_launches(
+        sp.spmm_coo, se.spmm)  # --- read just after ---
+    # The first month of fit (a)'s synthetic EXPY-TKY data
+    # (datasets.build_expytky_synthetic), its weekdaytime channel beside.
+    values, index = synthetic_speed_series(600, cfg.num_nodes,
+                                           interval_minutes=10, seed=0,
+                                           start="2021-10-01")
+    wdt = weekday_slot(index, 10)
+    month = np.stack([values, np.tile((wdt / wdt.max())[:, None],
+                                      (1, cfg.num_nodes))],
+                     axis=-1).astype(np.float32)
+    out["native"] = native_runs(month, data["train_loader"].xs)
+    x, y = next(iter(data["train_loader"]))
+    batch = to_device(prepare_x_y(x, y, cfg.input_dim, cfg.output_dim), dev)
+    out["checkified"] = checkified_runs(step, batch)
     return out
 
 
@@ -2609,6 +2952,8 @@ def main():
         gts = phase_gts(sp, se, d, dev)
         # The mesh.
         mesh = phase_mesh(sp, se, d, dev)
+        # The offline workflow and the host utilities.
+        offline = phase_offline(sp, se, d, dev, stacked)
     # Each path's counts as read just after it (measured, zeros included).
     by_path = {"serving_3_requests": serving,
                "train_stacked_coo_5_steps": train["stacked_coo"]["launches"],
@@ -2631,6 +2976,11 @@ def main():
     by_path["train_gts_5_steps"] = gts["gts"]["launches"]
     by_path["serve_gts_chunk"] = gts["gts"]["serve_launches"]
     by_path["cli_gts_synth_1_epoch"] = gts["cli"]["launches"]
+    for name in ("whole_2_epochs", "first_epoch", "resumed_epoch"):
+        by_path[f"offline_traintest_metrla_{name}"] = offline["traintest"][
+            name]["launches"]
+    by_path[f"prefetch_expytky_{5 * PREFETCH_STEPS}_steps"] = offline[
+        "prefetch"]["launches"]
     for entry, kind in ((coo, "stacked_coo"), (ell, "block_ell")):
         res = train[kind]
         name = entry["name"]
@@ -2698,6 +3048,7 @@ def main():
     print(json.dumps({"mesh": {
         name: {k: v for k, v in res.items() if k != "final_test"}
         for name, res in mesh.items()}}, default=float))
+    print(json.dumps({"offline": offline}, default=float))
     print(json.dumps({"kernels": [coo, ell]}, default=float))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,9 @@ presets hard-set num_nodes exactly as the reference does (:190-195).
 ``--mesh_data x --mesh_node y`` (x * y > 1) trains on a mesh: without
 ``WORLD_SIZE`` in the environment the CLI spawns x * y local ranks itself
 (``parallel.launch``), under torchrun each rank joins the group it is
-given; only rank 0 writes the run dir. The JAX CLI's ``--ckpt_backend
-orbax`` is accepted and refused with the ROADMAP item that ports it; no
-flag falls back to something else.
+given; only rank 0 writes the run dir. ``--ckpt_backend orbax`` writes
+the checkpoint as a directory, which the port writes with
+``torch.distributed.checkpoint`` (Orbax needs JAX).
 """
 from __future__ import annotations
 
@@ -124,7 +124,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_node", type=int, default=1)
     p.add_argument("--ckpt_backend", type=str, default="npz",
-                   choices=["npz", "orbax"])
+                   choices=["npz", "orbax"],
+                   help="'npz' (one file, either package reads it) or "
+                        "'orbax' (a directory, written with "
+                        "torch.distributed.checkpoint: Orbax needs JAX)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="capture a torch.profiler trace of --profile_steps "
                         "steps of the first epoch into this directory "
@@ -136,18 +139,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _int_list(text: str):
     """``[50,100]`` or ``50,100`` -> [50, 100] (the JAX CLI evals it)."""
     return [int(v) for v in text.strip("[]() ").split(",") if v.strip()]
-
-
-def unported_flags(args):
-    """[(flag, ROADMAP Queue 1 item)] of the JAX CLI's options whose code
-    the port does not have yet."""
-    out = []
-    if args.graph_backend == "sparse_meta" and args.mesh_node > 1:
-        out.append(("--graph_backend sparse_meta with --mesh_node > 1",
-                    "11 (its remainder: sparse_meta on the node axis)"))
-    if args.ckpt_backend == "orbax":
-        out.append(("--ckpt_backend orbax", "4 (Orbax checkpoints)"))
-    return out
 
 
 def configs_from_args(args):
@@ -223,7 +214,8 @@ def build_road_supports(args, model_cfg):
     CUDA kernel; ``xla``: its plain PyTorch version) or a stacked node-ELL
     pack (``ell``). ``sparse_meta``: the symmetrised edge pattern with self
     loops -> ``build_node_pattern`` (``--sparse_meta_impl node``) or
-    ``build_block_pattern`` (``block``). None for the dense backends.
+    ``build_block_pattern`` (``block``), whole: on a node axis the
+    sharded step cuts each rank's rows. None for the dense backends.
     ``partition_road_supports`` cuts the road supports for the node axis."""
     if model_cfg.graph_backend not in ("road_sparse", "sparse_meta"):
         return None
@@ -342,10 +334,6 @@ def _make_expytky_final_eval(model_cfg, data, road_supports=None):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refused = unported_flags(args)
-    if refused:
-        raise SystemExit("not ported yet: " + "; ".join(
-            f"{flag} (ROADMAP Queue 1 item {item})" for flag, item in refused))
     model_cfg, train_cfg = configs_from_args(args)
 
     from megacrn_tpu_torch.data import datasets
@@ -399,9 +387,9 @@ def main(argv=None):
     if args.dataset.startswith("EXPYTKY") or (
             train_cfg.eval_aggregation == "concat"):
         # The final evals run one device's forward: on the node-partitioned
-        # path they take the whole road constant.
+        # road path they take the whole road constant.
         eval_supports = road_supports
-        if args.mesh_node > 1 and road_supports is not None:
+        if args.mesh_node > 1 and model_cfg.graph_backend == "road_sparse":
             eval_supports = build_road_supports(
                 argparse.Namespace(**dict(vars(args), mesh_node=1)),
                 model_cfg)
@@ -412,7 +400,8 @@ def main(argv=None):
                  test_every_epoch=args.test_every_epoch,
                  final_eval_fn=final_eval_fn, road_supports=road_supports,
                  profile_dir=args.profile_dir,
-                 profile_steps=args.profile_steps, device=device, mesh=mesh)
+                 profile_steps=args.profile_steps, device=device, mesh=mesh,
+                 ckpt_backend=args.ckpt_backend)
     if mesh is None or mesh.rank == 0:
         print({k: v for k, v in result["test_metrics"].items()})
     return result

@@ -13,6 +13,9 @@ scaled by its own scaler. For npz datasets the raw series comes from
 ``--raw_h5``, read without pandas (``data/hdf5.py``, through h5py).
 ``--mesh_data`` > 1 trains data-parallel over that many ranks
 (``parallel.launch`` spawns them unless torchrun did).
+``--ckpt_backend orbax`` writes the weights and the BatchNorm state as two
+directories (``torch.distributed.checkpoint``; the JAX CLI has no such
+flag).
 """
 from __future__ import annotations
 
@@ -54,6 +57,11 @@ def build_parser():
     p.add_argument("--synth_steps", type=int, default=2000)
     p.add_argument("--mesh_data", type=int, default=1,
                    help="data-parallel mesh axis size")
+    p.add_argument("--ckpt_backend", type=str, default="npz",
+                   choices=["npz", "orbax"],
+                   help="'npz' (one file, either package reads it) or "
+                        "'orbax' (a directory, written with "
+                        "torch.distributed.checkpoint: Orbax needs JAX)")
     # trainval_ratio * (1 - val_ratio) = the raw series' train fraction
     # (traintest_GTS.py:325: 0.8 * (1 - 0.125) = 0.7).
     p.add_argument("--train_frac", type=float, default=0.7)
@@ -137,7 +145,8 @@ def main(argv=None):
     cfg, tcfg = configs_from_args(args, train_feas.shape[0])
     run = mesh_run_dir(args.save_dir, args.dataset, mesh, model_name="GTS")
     result = fit_gts(cfg, tcfg, data, train_feas, knn_prior, run,
-                     max_epochs=args.epochs, device=device, mesh=mesh)
+                     max_epochs=args.epochs, device=device, mesh=mesh,
+                     ckpt_backend=args.ckpt_backend)
     if mesh is None or mesh.rank == 0:
         print(result["test_metrics"])
     return result

@@ -14,7 +14,8 @@ protocol: ratio windowing without shuffling, the inverse transform inside
 the loss, no curriculum (``train/megacrnx_loop.py``). ``--mesh_data x
 --mesh_node y`` (x * y > 1) trains data-parallel over x * y ranks, the
 node axis replicated as in JAX (``parallel.launch`` spawns them unless
-torchrun did).
+torchrun did). ``--ckpt_backend orbax`` writes the checkpoint as a
+directory (``torch.distributed.checkpoint``; the JAX CLI has no such flag).
 """
 from __future__ import annotations
 
@@ -65,9 +66,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_nodes", type=int, default=None,
                    help="override node count (SYNTH; METRLA=207, PEMSBAY=325)")
     p.add_argument("--synth_steps", type=int, default=2000)
-    # The JAX package's data mesh (not ported yet).
+    # The mesh: data parallel; the node axis is replicated (parallel.api).
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_node", type=int, default=1)
+    p.add_argument("--ckpt_backend", type=str, default="npz",
+                   choices=["npz", "orbax"],
+                   help="'npz' (one file, either package reads it) or "
+                        "'orbax' (a directory, written with "
+                        "torch.distributed.checkpoint: Orbax needs JAX)")
     return p
 
 
@@ -150,7 +156,7 @@ def main(argv=None):
     run = mesh_run_dir(args.save_dir, args.dataset, mesh,
                        model_name="MegaCRNx")
     result = fit_megacrnx(model_cfg, train_cfg, data, run, device=device,
-                          mesh=mesh)
+                          mesh=mesh, ckpt_backend=args.ckpt_backend)
     if mesh is None or mesh.rank == 0:
         print({k: v for k, v in result["test_metrics"].items()
                if k != "per_step"})

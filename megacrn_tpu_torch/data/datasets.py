@@ -19,22 +19,13 @@ from typing import Dict
 
 import numpy as np
 
+from megacrn_tpu_torch.data import native
 from megacrn_tpu_torch.data.loader import BatchLoader
 from megacrn_tpu_torch.data.scalers import StandardScaler
 from megacrn_tpu_torch.data.synthetic import synthetic_speed_series
 from megacrn_tpu_torch.data.windowing import (chronological_split,
                                               generate_seq2seq_dataset,
                                               weekday_slot)
-
-
-def _scale_channel(data: np.ndarray, channel: int, mean: float,
-                   std: float) -> None:
-    """In place, ``(x - mean) * (1 / std)`` on ``data[..., channel]`` in
-    float32 with mean and 1/std rounded to float32: the arithmetic of the
-    JAX package's host library (``native/megacrn_data.cc``), which its
-    pipeline runs wherever g++ builds it, so the arrays are equal."""
-    data[..., channel] = ((data[..., channel] - np.float32(mean))
-                          * np.float32(1.0 / std))
 
 
 def _finalize(splits: Dict, batch_size: int, shuffle_rng=None,
@@ -53,8 +44,10 @@ def _finalize(splits: Dict, batch_size: int, shuffle_rng=None,
         x, y = splits[cat]
         x = np.array(x, np.float32, order="C")
         y = np.array(y, np.float32, order="C")
-        _scale_channel(x, 0, scaler.mean, scaler.std)
-        _scale_channel(y, 0, scaler.mean, scaler.std)
+        # The host library's in-place scaling (data.native), as the JAX
+        # package's pipeline runs it.
+        native.scale_channel_inplace(x, 0, scaler.mean, scaler.std)
+        native.scale_channel_inplace(y, 0, scaler.mean, scaler.std)
         data[f"x_{cat}"], data[f"y_{cat}"] = x, y
         data[f"{cat}_loader"] = BatchLoader(
             x, y, batch_size, shuffle=(cat == "train"), rng=rng,

@@ -70,8 +70,18 @@ class BatchLoader:
         if shuffle and not reshuffle_each_epoch:
             # Parity: one construction-time permutation (model/utils.py:25-27).
             perm = self.rng.permutation(self.size)
-            xs, ys = xs[perm], ys[perm]
+            xs, ys = self._gather(xs, perm), self._gather(ys, perm)
         self.xs, self.ys = xs, ys
+
+    @staticmethod
+    def _gather(a, perm):
+        """``a[perm]``; float32 rows through the host library
+        (``data.native``), as the JAX package gathers them."""
+        if a.dtype == np.float32:
+            from megacrn_tpu_torch.data import native
+
+            return native.index_gather(a, perm)
+        return a[perm]
 
     def __len__(self) -> int:
         return self.num_batch
@@ -90,7 +100,7 @@ class BatchLoader:
             else:
                 gen = self.rng
             perm = gen.permutation(self.size)
-            xs, ys = xs[perm], ys[perm]
+            xs, ys = self._gather(xs, perm), self._gather(ys, perm)
         for i in range(self.num_batch):
             s = i * self.batch_size
             yield xs[s:s + self.batch_size], ys[s:s + self.batch_size]

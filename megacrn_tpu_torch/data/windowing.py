@@ -104,8 +104,15 @@ def window_series(
     min_t = abs(int(min(x_offsets)))
     max_t = abs(num_samples - abs(int(max(y_offsets))))
     anchors = np.arange(min_t, max_t)
-    x = data[anchors[:, None] + np.asarray(x_offsets)[None, :]]
-    y = data[anchors[:, None] + np.asarray(y_offsets)[None, :]]
+    if data.ndim == 3 and data.dtype == np.float32:
+        # The host library's gather (data.native; numpy without it).
+        from megacrn_tpu_torch.data import native
+
+        x = native.window_gather(data, anchors, np.asarray(x_offsets))
+        y = native.window_gather(data, anchors, np.asarray(y_offsets))
+    else:
+        x = data[anchors[:, None] + np.asarray(x_offsets)[None, :]]
+        y = data[anchors[:, None] + np.asarray(y_offsets)[None, :]]
     return x, y
 
 
@@ -186,3 +193,17 @@ def chronological_split(
         "val": (x[num_train:num_train + num_val], y[num_train:num_train + num_val]),
         "test": (x[-num_test:], y[-num_test:]),
     }
+
+
+def save_npz_splits(splits, output_dir: str, seq_len: int = 12,
+                    horizon: int = 12):
+    """Write {train,val,test}.npz with the reference key layout
+    (generate_training_data.py:94-103)."""
+    import os
+
+    x_offsets = np.arange(-(seq_len - 1), 1).reshape(-1, 1)
+    y_offsets = np.arange(1, horizon + 1).reshape(-1, 1)
+    for cat, (x, y) in splits.items():
+        np.savez_compressed(
+            os.path.join(output_dir, f"{cat}.npz"),
+            x=x, y=y, x_offsets=x_offsets, y_offsets=y_offsets)

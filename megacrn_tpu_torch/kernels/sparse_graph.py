@@ -19,9 +19,12 @@ scatter-add), as the JAX package writes them in XLA with plain autodiff.
 
 Pattern layout: per row-block i, a list ``cols[i, r]`` of column-block
 indices (padded by repeating a valid index with an all-zero mask tile).
-``build_block_pattern`` takes the adjacency in the order given; the JAX
-package's locality reordering (``kernels.spmm.rcm_ordering``) is not ported
-yet (ROADMAP Queue 1, parallelism).
+On a node-partitioned mesh each rank holds a ``LocalBlockPattern``
+(``local_block_pattern``): the tiles of its contiguous rows against every
+column, built from its rows of the adjacency, so a rank whose rows straddle
+a 128-row tile boundary gets tiles of its own rows only.
+``build_block_pattern`` takes the adjacency in the order given; a caller
+that wants fewer tiles reorders it first (``kernels.spmm.rcm_ordering``).
 """
 from __future__ import annotations
 
@@ -49,6 +52,14 @@ class BlockPattern(NamedTuple):
     n: int
     n_orig: int
 
+    # The rows the pattern covers: all of them (a ``LocalBlockPattern``
+    # covers one rank's).
+    lo = 0
+
+    @property
+    def n_loc(self) -> int:
+        return self.n_orig
+
     def to(self, device=None, dtype=None,
            transpose: bool = False) -> "BlockPattern":
         """Move ``cols``; move and cast ``mask``. ``transpose`` is accepted
@@ -58,27 +69,84 @@ class BlockPattern(NamedTuple):
                              mask=self.mask.to(device=device, dtype=dtype))
 
 
-def build_block_pattern(adj: np.ndarray) -> BlockPattern:
-    """The tile pattern of a 0/1 numpy adjacency. Host-side; the arrays are
-    CPU tensors (``.to`` moves them)."""
-    n_orig = adj.shape[0]
-    n = ((n_orig + BLOCK - 1) // BLOCK) * BLOCK
-    ap = np.zeros((n, n), np.float32)
-    ap[:n_orig, :n_orig] = (np.asarray(adj) != 0).astype(np.float32)
-    nblk = n // BLOCK
-    tiles = ap.reshape(nblk, BLOCK, nblk, BLOCK).transpose(0, 2, 1, 3)
+class LocalBlockPattern(NamedTuple):
+    """One rank's rows ``lo:lo + n_loc`` of a ``BlockPattern``: a
+    rectangular pattern of ``ceil(n_loc / 128)`` row-blocks against the
+    ``n / 128`` column blocks of the whole graph (``n`` padded, ``n_orig``
+    real columns). Its tiles hold the rank's rows only, re-blocked from row
+    ``lo``."""
+
+    cols: torch.Tensor
+    mask: torch.Tensor
+    n: int
+    n_orig: int
+    lo: int
+    n_loc: int
+
+    def to(self, device=None, dtype=None,
+           transpose: bool = False) -> "LocalBlockPattern":
+        """As ``BlockPattern.to``."""
+        return self._replace(cols=self.cols.to(device),
+                             mask=self.mask.to(device=device, dtype=dtype))
+
+
+def _tile_pattern(ap: np.ndarray):
+    """(cols, mask) of a 0/1 array whose sides are multiples of BLOCK: per
+    row-block, its nonzero column blocks in order, padded to the widest
+    row-block by repeating its first one under an all-zero mask tile."""
+    rb, cb = ap.shape[0] // BLOCK, ap.shape[1] // BLOCK
+    tiles = ap.reshape(rb, BLOCK, cb, BLOCK).transpose(0, 2, 1, 3)
     nz = tiles.sum(axis=(2, 3)) > 0
     r_max = max(1, int(nz.sum(1).max()))
-    cols = np.zeros((nblk, r_max), np.int64)
-    mask = np.zeros((nblk, r_max, BLOCK, BLOCK), np.float32)
-    for i in range(nblk):
+    cols = np.zeros((rb, r_max), np.int64)
+    mask = np.zeros((rb, r_max, BLOCK, BLOCK), np.float32)
+    for i in range(rb):
         cs = np.nonzero(nz[i])[0]
         for r, j in enumerate(cs):
             cols[i, r] = j
             mask[i, r] = tiles[i, j]
         cols[i, len(cs):] = cs[0] if len(cs) else 0
-    return BlockPattern(torch.from_numpy(cols), torch.from_numpy(mask), n,
-                        n_orig)
+    return torch.from_numpy(cols), torch.from_numpy(mask)
+
+
+def _padded(n: int) -> int:
+    return ((n + BLOCK - 1) // BLOCK) * BLOCK
+
+
+def build_block_pattern(adj: np.ndarray) -> BlockPattern:
+    """The tile pattern of a 0/1 numpy adjacency. Host-side; the arrays are
+    CPU tensors (``.to`` moves them)."""
+    n_orig = adj.shape[0]
+    n = _padded(n_orig)
+    ap = np.zeros((n, n), np.float32)
+    ap[:n_orig, :n_orig] = (np.asarray(adj) != 0).astype(np.float32)
+    return BlockPattern(*_tile_pattern(ap), n, n_orig)
+
+
+def local_block_pattern(pattern: BlockPattern, index: int,
+                        n_shards: int) -> LocalBlockPattern:
+    """Rank ``index``'s rows of ``pattern`` when ``n_shards`` ranks split
+    its nodes into equal contiguous blocks: its rows of the adjacency, read
+    back from the tiles, packed again from its first row."""
+    n_orig = pattern.n_orig
+    if n_orig % n_shards:
+        raise ValueError(f"num_nodes {n_orig} does not divide by the node "
+                         f"axis {n_shards}")
+    n_loc = n_orig // n_shards
+    lo = index * n_loc
+    cols = pattern.cols.cpu().numpy()
+    mask = pattern.mask.float().cpu().numpy()
+    # The row-blocks that hold the rank's rows, as a dense strip.
+    b0, b1 = lo // BLOCK, (lo + n_loc - 1) // BLOCK + 1
+    strip = np.zeros(((b1 - b0) * BLOCK, pattern.n), np.float32)
+    for i in range(b0, b1):
+        for r, j in enumerate(cols[i]):  # pad slots add zero tiles
+            strip[(i - b0) * BLOCK:(i - b0 + 1) * BLOCK,
+                  j * BLOCK:(j + 1) * BLOCK] += mask[i, r]
+    ap = np.zeros((_padded(n_loc), pattern.n), np.float32)
+    ap[:n_loc] = strip[lo - b0 * BLOCK:lo - b0 * BLOCK + n_loc]
+    return LocalBlockPattern(*_tile_pattern(ap), pattern.n, n_orig, lo,
+                             n_loc)
 
 
 def _pad_nodes(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -92,9 +160,11 @@ def sddmm_blocks(e1: torch.Tensor, e2: torch.Tensor,
                  pattern: BlockPattern) -> torch.Tensor:
     """tiles[i, r] = E1_blk[i] @ E2_blk[cols[i, r]]^T (masked).
 
-    e1, e2: (N, d). Returns (nblk, R, BLOCK, BLOCK).
+    e1: (n_loc, d), the pattern's rows; e2: (N, d). Returns
+    (nblk, R, BLOCK, BLOCK).
     """
-    e1 = _pad_nodes(e1, pattern.n).reshape(-1, BLOCK, e1.shape[-1])
+    e1 = _pad_nodes(e1, pattern.mask.shape[0] * BLOCK).reshape(
+        -1, BLOCK, e1.shape[-1])
     e2 = _pad_nodes(e2, pattern.n).reshape(-1, BLOCK, e2.shape[-1])
     e2_g = e2[pattern.cols]  # (nblk, R, BLOCK, d)
     tiles = torch.einsum("ibk,irck->irbc", e1, e2_g)
@@ -105,14 +175,14 @@ def spmm_blocks(tiles: torch.Tensor, pattern: BlockPattern,
                 x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A = (tiles, pattern); differentiable in tiles and x.
 
-    x: (N, f) -> (N, f). Autograd gives the transpose product for dx and
-    the SDDMM-shaped product for dtiles.
+    x: (N, f) -> (n_loc, f), the pattern's rows. Autograd gives the
+    transpose product for dx and the SDDMM-shaped product for dtiles.
     """
-    n_orig, f = x.shape
+    f = x.shape[1]
     xp = _pad_nodes(x, pattern.n).reshape(-1, BLOCK, f)  # (nblk, BLOCK, f)
     x_g = xp[pattern.cols]  # (nblk, R, BLOCK, f)
     y = torch.einsum("irbc,ircf->ibf", tiles, x_g)  # over slots and cols
-    return y.reshape(pattern.n, f)[:n_orig]
+    return y.reshape(-1, f)[:pattern.n_loc]
 
 
 def block_row_softmax(tiles: torch.Tensor, pattern: BlockPattern,
@@ -134,11 +204,14 @@ def sparse_meta_graph(memory: torch.Tensor, we1: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Edge-restricted learned supports: the meta-graph hypernetwork
     (model/MegaCRN.py:168-173) on a static edge pattern only, softmax over
-    each row's edges. Returns (tiles_g1, tiles_g2) for ``spmm_blocks``."""
+    each row's edges. Returns (tiles_g1, tiles_g2) for ``spmm_blocks``; of
+    a ``LocalBlockPattern``, the rank's rows (the embeddings are small and
+    computed whole on every rank)."""
     e1 = we1 @ memory
     e2 = we2 @ memory
-    t1 = torch.relu(sddmm_blocks(e1, e2, pattern))
-    t2 = torch.relu(sddmm_blocks(e2, e1, pattern))
+    rows = slice(pattern.lo, pattern.lo + pattern.n_loc)
+    t1 = torch.relu(sddmm_blocks(e1[rows], e2, pattern))
+    t2 = torch.relu(sddmm_blocks(e2[rows], e1, pattern))
     return (block_row_softmax(t1, pattern), block_row_softmax(t2, pattern))
 
 

@@ -20,10 +20,13 @@ pattern, so pattern bytes are O(nnz):
   (``model/MegaCRN.py:17-26``).
 
 The softmax spans a row's edges only, where the reference's spans all N
-columns: the two are equal on a complete pattern. The JAX package writes
-these ops in XLA, not Pallas, and the port in plain PyTorch. The numpy
-builders are copies of the JAX ones; index arrays are int64 tensors from the
-start.
+columns: the two are equal on a complete pattern. On a node-partitioned
+mesh each rank holds a ``LocalNodePattern`` (``local_node_pattern``): its
+contiguous rows of the pattern, flat or bucketed again among themselves,
+with the (N x n_loc) transpose of those rows for the backward. The JAX
+package writes these ops in XLA, not Pallas, and the port in plain
+PyTorch. The numpy builders are copies of the JAX ones; index arrays are
+int64 tensors from the start.
 """
 from __future__ import annotations
 
@@ -144,12 +147,18 @@ def build_node_pattern(adj: np.ndarray, max_buckets: int = 4,
             return build_node_pattern_bucketed(adj, max_buckets)
     n = a.shape[0]
     rows, cols = np.nonzero(a)
+    return _flat_pattern(rows, cols, n, n)
+
+
+def _flat_pattern(rows, cols, n_rows: int, n_cols: int) -> NodeELLPattern:
+    """The flat pattern of the edges (rows[e], cols[e]) of an (n_rows x
+    n_cols) matrix; its transposed side has n_cols rows."""
     order = np.lexsort((cols, rows))
     rows, cols = rows[order], cols[order]
-    counts = np.bincount(rows, minlength=n)
+    counts = np.bincount(rows, minlength=n_rows)
     d = max(1, int(counts.max()))
-    nbr = np.zeros((n, d), np.int64)
-    mask = np.zeros((n, d), np.float32)
+    nbr = np.zeros((n_rows, d), np.int64)
+    mask = np.zeros((n_rows, d), np.float32)
     slot = _slots(counts)
     nbr[rows, slot] = cols
     mask[rows, slot] = 1.0
@@ -157,29 +166,36 @@ def build_node_pattern(adj: np.ndarray, max_buckets: int = 4,
 
     t_order = np.lexsort((rows, cols))
     tr, tc, tf = cols[t_order], rows[t_order], flat[t_order]
-    t_counts = np.bincount(tr, minlength=n)
+    t_counts = np.bincount(tr, minlength=n_cols)
     dt = max(1, int(t_counts.max()))
-    t_nbr = np.zeros((n, dt), np.int64)
-    t_slot = np.zeros((n, dt), np.int64)
-    t_mask = np.zeros((n, dt), np.float32)
+    t_nbr = np.zeros((n_cols, dt), np.int64)
+    t_slot = np.zeros((n_cols, dt), np.int64)
+    t_mask = np.zeros((n_cols, dt), np.float32)
     ts = _slots(t_counts)
     t_nbr[tr, ts] = tc
     t_slot[tr, ts] = tf
     t_mask[tr, ts] = 1.0
     return NodeELLPattern(_index(nbr), _values(mask), _index(t_nbr),
-                          _index(t_slot), _values(t_mask), n)
+                          _index(t_slot), _values(t_mask), n_rows)
 
 
 def build_node_pattern_bucketed(adj: np.ndarray,
                                 max_buckets: int = 4) -> BucketedNodeELLPattern:
     """Bucketed variant of ``build_node_pattern`` (same 0/1 adjacency in)."""
     a = np.asarray(adj) != 0
-    n = a.shape[0]
     rows, cols = np.nonzero(a)
+    return _bucketed_pattern(rows, cols, a.shape[0], a.shape[0],
+                             max_buckets)
+
+
+def _bucketed_pattern(rows, cols, n_rows: int, n_cols: int,
+                      max_buckets: int) -> BucketedNodeELLPattern:
+    """The bucketed pattern of the edges (rows[e], cols[e]) of an (n_rows x
+    n_cols) matrix; its transposed side buckets the n_cols columns."""
     order = np.lexsort((cols, rows))
     rows, cols = rows[order], cols[order]
 
-    def bucketize(r, c, payload):
+    def bucketize(r, c, payload, n):
         """r sorted-major; payload (len(r),) carried into the slot arrays.
         Returns (nbr, mask, rows, payload tuples, inv, the flat index of
         every edge's slot in the concatenated layout)."""
@@ -225,14 +241,72 @@ def build_node_pattern_bucketed(adj: np.ndarray,
         return (tuple(nbrs), tuple(masks), tuple(rows_ids), tuple(pay),
                 _index(rank), edge_flat)
 
-    f_nbr, f_mask, f_rows, _, f_inv, edge_flat = bucketize(rows, cols, None)
+    f_nbr, f_mask, f_rows, _, f_inv, edge_flat = bucketize(rows, cols, None,
+                                                           n_rows)
     # Transpose: edge (r, c) lives in t-row c; its t_slot points at the
     # edge's flat position in the FORWARD concatenated weight layout.
     t_order = np.lexsort((rows, cols))
     t_nbr, t_mask, _, t_slot, t_inv, _ = bucketize(
-        cols[t_order], rows[t_order], edge_flat[t_order])
+        cols[t_order], rows[t_order], edge_flat[t_order], n_cols)
     return BucketedNodeELLPattern(f_nbr, f_mask, f_rows, f_inv,
-                                  t_nbr, t_slot, t_mask, t_inv, n)
+                                  t_nbr, t_slot, t_mask, t_inv, n_rows)
+
+
+class LocalNodePattern(NamedTuple):
+    """One rank's rows ``lo:lo + n_loc`` of a node pattern: ``pattern``
+    is a ``NodeELLPattern`` or ``BucketedNodeELLPattern`` of the rank's
+    (n_loc x N) rows, its row ids local (0 is row ``lo``) and its column
+    ids global; its transposed side has N rows, listing the local rows of
+    each column's edges."""
+
+    pattern: object
+    lo: int
+
+    @property
+    def n_loc(self) -> int:
+        return self.pattern.n_orig
+
+    def to(self, device=None, dtype=None,
+           transpose: bool = False) -> "LocalNodePattern":
+        return self._replace(pattern=self.pattern.to(device, dtype,
+                                                     transpose=transpose))
+
+
+def _edges(pattern):
+    """(rows, cols) of a node pattern's edges, as numpy arrays."""
+    if isinstance(pattern, BucketedNodeELLPattern):
+        rows, cols = [], []
+        for nbr, mask, ids in zip(pattern.nbr, pattern.mask, pattern.rows):
+            i, d = np.nonzero(mask.float().cpu().numpy())
+            rows.append(ids.cpu().numpy()[i])
+            cols.append(nbr.cpu().numpy()[i, d])
+        return np.concatenate(rows), np.concatenate(cols)
+    r, d = np.nonzero(pattern.mask.float().cpu().numpy())
+    return r, pattern.nbr.cpu().numpy()[r, d]
+
+
+def local_node_pattern(pattern, index: int,
+                       n_shards: int) -> LocalNodePattern:
+    """Rank ``index``'s rows of a ``NodeELLPattern`` or
+    ``BucketedNodeELLPattern`` when ``n_shards`` ranks split its nodes into
+    equal contiguous blocks. A bucketed pattern's rows are bucketed again
+    among the rank's own rows (up to 4 buckets, ``build_node_pattern``'s
+    default), as the sharded node-ELL road packs are; each row keeps its
+    edges in column order, so every row sums as on one device."""
+    n = pattern.n_orig
+    if n % n_shards:
+        raise ValueError(f"num_nodes {n} does not divide by the node axis "
+                         f"{n_shards}")
+    n_loc = n // n_shards
+    lo = index * n_loc
+    rows, cols = _edges(pattern)
+    keep = (rows >= lo) & (rows < lo + n_loc)
+    rows, cols = rows[keep] - lo, cols[keep]
+    if isinstance(pattern, BucketedNodeELLPattern):
+        local = _bucketed_pattern(rows, cols, n_loc, n, 4)
+    else:
+        local = _flat_pattern(rows, cols, n_loc, n)
+    return LocalNodePattern(local, lo)
 
 
 def _slot_spmm(w, nbr, x):
@@ -369,31 +443,31 @@ def sparse_meta_graph_node(memory: torch.Tensor, we1: torch.Tensor,
     meta-graph hypernetwork (model/MegaCRN.py:168-173) on the pattern slots
     only, softmax over each row's edges. (w1, w2) as (N, D) arrays for a
     ``NodeELLPattern``, as per-bucket tuples for a
-    ``BucketedNodeELLPattern``; both go to ``cheb_aggregate_learned_node``."""
+    ``BucketedNodeELLPattern``; both go to ``cheb_aggregate_learned_node``.
+    Of a ``LocalNodePattern``, the rank's rows (the embeddings are small and
+    computed whole on every rank)."""
     e1 = we1 @ memory
     e2 = we2 @ memory
+    lo = 0
+    if isinstance(pattern, LocalNodePattern):
+        lo, pattern = pattern.lo, pattern.pattern
+    rows = slice(lo, lo + pattern.n_orig)
     if isinstance(pattern, BucketedNodeELLPattern):
         def relu_t(t):
             return tuple(torch.relu(s) for s in t)
-        s1 = relu_t(sddmm_node_bucketed(e1, e2, pattern))
-        s2 = relu_t(sddmm_node_bucketed(e2, e1, pattern))
+        s1 = relu_t(sddmm_node_bucketed(e1[rows], e2, pattern))
+        s2 = relu_t(sddmm_node_bucketed(e2[rows], e1, pattern))
         return (node_row_softmax_bucketed(s1, pattern),
                 node_row_softmax_bucketed(s2, pattern))
-    s1 = torch.relu(sddmm_node(e1, e2, pattern.nbr, pattern.mask))
-    s2 = torch.relu(sddmm_node(e2, e1, pattern.nbr, pattern.mask))
+    s1 = torch.relu(sddmm_node(e1[rows], e2, pattern.nbr, pattern.mask))
+    s2 = torch.relu(sddmm_node(e2[rows], e1, pattern.nbr, pattern.mask))
     return (node_row_softmax(s1, pattern.mask),
             node_row_softmax(s2, pattern.mask))
 
 
-def cheb_aggregate_learned_node(weights, pattern, x: torch.Tensor,
-                                cheb_k: int) -> torch.Tensor:
-    """Chebyshev stack (reference order, model/MegaCRN.py:17-26) over
-    learned node-ELL supports. weights: a sequence of (N, D) arrays (flat
-    pattern) or of per-bucket tuples (bucketed pattern); x: (B, N, C) ->
-    (B, N, S*K, C)."""
-    b, n, c = x.shape
-    flat = x.permute(1, 0, 2).reshape(n, b * c)
-
+def learned_node_apply(pattern):
+    """``(w, v) -> A_w @ v`` on a flat or bucketed pattern: v (columns, F)
+    -> (rows, F), differentiable in w and v."""
     if isinstance(pattern, BucketedNodeELLPattern):
         def apply(w, v):
             return spmm_node_bucketed(
@@ -406,7 +480,18 @@ def cheb_aggregate_learned_node(weights, pattern, x: torch.Tensor,
             return spmm_node(pattern.nbr, pattern.mask.to(v.dtype),
                              pattern.t_nbr, pattern.t_slot,
                              pattern.t_mask.to(v.dtype), w, v)
+    return apply
 
+
+def cheb_aggregate_learned_node(weights, pattern, x: torch.Tensor,
+                                cheb_k: int) -> torch.Tensor:
+    """Chebyshev stack (reference order, model/MegaCRN.py:17-26) over
+    learned node-ELL supports. weights: a sequence of (N, D) arrays (flat
+    pattern) or of per-bucket tuples (bucketed pattern); x: (B, N, C) ->
+    (B, N, S*K, C)."""
+    b, n, c = x.shape
+    flat = x.permute(1, 0, 2).reshape(n, b * c)
+    apply = learned_node_apply(pattern)
     terms = []
     for w in weights:
         t_prev, t_cur = flat, apply(w, flat)

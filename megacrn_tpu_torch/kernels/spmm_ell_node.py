@@ -569,12 +569,11 @@ def _apply_batched(nbr, w, t_full):
 def cheb_aggregate_node_ell_sharded(pack, x: torch.Tensor, cheb_k: int,
                                     group) -> torch.Tensor:
     """Node-partitioned Chebyshev stack: all-gather the x node blocks over
-    ``group`` (the mesh's node group), gather-reduce on the local rows.
-    Output (B, n_loc, S*K, C), node-local. Each further Chebyshev level
-    re-gathers its input, as ``parallel.ring.cheb_aggregate_sparse_sharded``
-    does. ``pack``: ``LocalNodeELL`` or ``LocalBucketedNodeELL`` (per-bucket
-    gather-reduce, concatenated, one un-permute)."""
-    from megacrn_tpu_torch.parallel.comm import all_gather_nodes
+    ``group`` (the mesh's node group), gather-reduce on the local rows
+    (``parallel.ring.cheb_stack_gathered``). Output (B, n_loc, S*K, C),
+    node-local. ``pack``: ``LocalNodeELL`` or ``LocalBucketedNodeELL``
+    (per-bucket gather-reduce, concatenated, one un-permute)."""
+    from megacrn_tpu_torch.parallel.ring import cheb_stack_gathered
 
     if isinstance(pack, LocalBucketedNodeELL):
         num_supports = len(pack.nbr)
@@ -589,14 +588,4 @@ def cheb_aggregate_node_ell_sharded(pack, x: torch.Tensor, cheb_k: int,
         def apply_local(s, t_full):
             return _apply_batched(pack.nbr[s], pack.w[s], t_full)
 
-    x_full = all_gather_nodes(x, group)
-    terms = []
-    for s in range(num_supports):
-        t_prev, t_cur = x, apply_local(s, x_full)
-        terms += [t_prev, t_cur]
-        for _ in range(2, cheb_k):
-            t_prev, t_cur = t_cur, (
-                2.0 * apply_local(s, all_gather_nodes(t_cur, group))
-                - t_prev)
-            terms.append(t_cur)
-    return torch.stack(terms, dim=2)
+    return cheb_stack_gathered(num_supports, apply_local, x, cheb_k, group)

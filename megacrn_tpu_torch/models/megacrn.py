@@ -26,7 +26,11 @@ aggregates on the ring (``parallel.ring``), ``dense`` under a node axis > 1
 the same rows with the x blocks all-gathered (the all-gather GSPMD inserts
 in JAX); a list of local block-ELL pairs goes through
 ``cheb_aggregate_sparse_sharded``, a ``LocalNodeELL`` /
-``LocalBucketedNodeELL`` through ``cheb_aggregate_node_ell_sharded``.
+``LocalBucketedNodeELL`` through ``cheb_aggregate_node_ell_sharded``, and
+``sparse_meta``'s ``LocalNodePattern`` / ``LocalBlockPattern`` (the rank's
+rows of the edge pattern) through the learned sharded aggregations of
+``parallel.ring``: each rank computes its rows of the SDDMM and softmax
+from the whole node embeddings and multiplies them into the gathered x.
 Outside a mesh ``dense_ring`` is the ``dense`` path, as in JAX.
 """
 from __future__ import annotations
@@ -41,10 +45,11 @@ from torch.utils.checkpoint import checkpoint
 from megacrn_tpu_torch import resolve_device
 from megacrn_tpu_torch.config import MegaCRNConfig
 from megacrn_tpu_torch.kernels.sparse_graph import (
-    BlockPattern, cheb_aggregate_learned_sparse, sparse_meta_graph)
+    BlockPattern, LocalBlockPattern, cheb_aggregate_learned_sparse,
+    sparse_meta_graph)
 from megacrn_tpu_torch.kernels.sparse_graph_node import (
-    BucketedNodeELLPattern, NodeELLPattern, cheb_aggregate_learned_node,
-    sparse_meta_graph_node)
+    BucketedNodeELLPattern, LocalNodePattern, NodeELLPattern,
+    cheb_aggregate_learned_node, sparse_meta_graph_node)
 from megacrn_tpu_torch.kernels.spmm import BlockELL
 from megacrn_tpu_torch.kernels.spmm_coo import StackedRoadPack
 from megacrn_tpu_torch.kernels.spmm_ell_node import (
@@ -84,7 +89,9 @@ def sampling_mask(threshold: float, horizon: int,
 _PACKS = (StackedRoadPack, StackedNodeELL, BucketedStackedNodeELL)
 _NODE_PATTERNS = (NodeELLPattern, BucketedNodeELLPattern)
 _LOCAL_NODE_ELL = (LocalNodeELL, LocalBucketedNodeELL)
-_MOVABLE = _PACKS + _NODE_PATTERNS + _LOCAL_NODE_ELL + (BlockPattern,)
+_LOCAL_PATTERNS = (LocalNodePattern, LocalBlockPattern)
+_MOVABLE = (_PACKS + _NODE_PATTERNS + _LOCAL_NODE_ELL + _LOCAL_PATTERNS
+            + (BlockPattern,))
 
 
 def road_supports_to(road_supports, device=None, dtype=None,
@@ -92,9 +99,9 @@ def road_supports_to(road_supports, device=None, dtype=None,
     """Move and cast a graph constant: a ``StackedRoadPack``, a list of
     ``(BlockELL, BlockELL_t)`` pairs, a stacked node-ELL pack (flat or
     bucketed), a rank's local node-ELL rows or a ``sparse_meta`` pattern
-    (node, bucketed or block). Index
-    arrays move and are never cast; tile data, weights and masks are cast
-    to ``dtype``. The transposed packs (and a node pattern's transposed
+    (node, bucketed or block; whole or a rank's rows). Index arrays move
+    and are never cast; tile data, weights and masks are cast to
+    ``dtype``. The transposed packs (and a node pattern's transposed
     side) are read only by the backward, so they move only when
     ``transpose`` is set."""
     if isinstance(road_supports, _MOVABLE):
@@ -331,37 +338,52 @@ class MegaCRN(nn.Module):
                                      transpose=torch.is_grad_enabled()),
                     aggregate)
         if backend == "sparse_meta":
-            if node_group is not None and node_group.size > 1:
-                raise NotImplementedError(
-                    "graph_backend='sparse_meta' under a node axis > 1 is not "
-                    "ported yet (ROADMAP Queue 1 item 11, its remainder)")
-            if not isinstance(road_supports, _NODE_PATTERNS + (BlockPattern,)):
+            local = isinstance(road_supports, _LOCAL_PATTERNS)
+            if not isinstance(road_supports, _NODE_PATTERNS + (BlockPattern,)
+                              + _LOCAL_PATTERNS):
                 raise TypeError(
                     "graph_backend='sparse_meta' requires road_supports="
                     "NodeELLPattern, BucketedNodeELLPattern or BlockPattern,"
                     f" got {type(road_supports).__name__}")
+            if local != (node_group is not None and node_group.size > 1):
+                raise ValueError(
+                    "a node-partitioned step takes the rank's rows of the "
+                    "pattern (LocalNodePattern or LocalBlockPattern: "
+                    "parallel.api cuts them), and only it does")
+            if local and road_supports.n_loc != n_nodes:
+                raise ValueError(f"the pattern holds {road_supports.n_loc} "
+                                 f"rows, x holds {n_nodes} nodes")
             pattern = road_supports_to(road_supports, dtype=compute_dtype,
                                        transpose=torch.is_grad_enabled())
             # The learned weights at the parameters' dtype, then cast.
-            if isinstance(pattern, _NODE_PATTERNS):
+            if isinstance(pattern, _NODE_PATTERNS + (LocalNodePattern,)):
                 weights = sparse_meta_graph_node(mem["Memory"], mem["We1"],
                                                  mem["We2"], pattern)
-                if isinstance(pattern, BucketedNodeELLPattern):
+                if isinstance(getattr(pattern, "pattern", pattern),
+                              BucketedNodeELLPattern):
                     weights = tuple(tuple(w_b.to(compute_dtype) for w_b in w)
                                     for w in weights)
                 else:
                     weights = tuple(w.to(compute_dtype) for w in weights)
-
-                def aggregate(weights_, x, cheb_k):
-                    return cheb_aggregate_learned_node(weights_, pattern, x,
-                                                       cheb_k)
+                agg = cheb_aggregate_learned_node
             else:
                 weights = tuple(t.to(compute_dtype) for t in sparse_meta_graph(
                     mem["Memory"], mem["We1"], mem["We2"], pattern))
+                agg = cheb_aggregate_learned_sparse
+            if local:
+                from megacrn_tpu_torch.parallel.ring import (
+                    cheb_aggregate_learned_node_sharded,
+                    cheb_aggregate_learned_sparse_sharded)
 
-                def aggregate(tiles, x, cheb_k):
-                    return cheb_aggregate_learned_sparse(tiles, pattern, x,
-                                                         cheb_k)
+                sharded = (cheb_aggregate_learned_node_sharded
+                           if agg is cheb_aggregate_learned_node
+                           else cheb_aggregate_learned_sparse_sharded)
+
+                def aggregate(weights_, x, cheb_k):
+                    return sharded(weights_, pattern, x, cheb_k, node_group)
+            else:
+                def aggregate(weights_, x, cheb_k):
+                    return agg(weights_, pattern, x, cheb_k)
 
             return weights, aggregate
         raise ValueError(f"unknown graph_backend {backend!r}")

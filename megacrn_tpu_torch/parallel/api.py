@@ -34,8 +34,8 @@ alike on every rank.
 The data-parallel steps (``make_shardmap_train_step``, the families')
 run the whole forward on the rank's batch rows; under a node axis > 1 the
 ranks of a data row compute the same, as the JAX ``shard_map`` over
-``data`` replicates them. The node-partitioned steps (``dense`` under
-``make_sharded_train_step``, ``make_ring_train_step``,
+``data`` replicates them. The node-partitioned steps (``dense`` and
+``sparse_meta`` under ``make_sharded_train_step``, ``make_ring_train_step``,
 ``make_road_node_train_step``) hand the model the mesh's node group, and
 sum over every rank. Each returned step carries ``shard_nodes``: whether
 its batch blocks are cut along the nodes too.
@@ -46,6 +46,10 @@ from typing import Callable
 
 import torch
 
+from megacrn_tpu_torch.kernels.sparse_graph import (BlockPattern,
+                                                    local_block_pattern)
+from megacrn_tpu_torch.kernels.sparse_graph_node import (
+    BucketedNodeELLPattern, NodeELLPattern, local_node_pattern)
 from megacrn_tpu_torch.kernels.spmm import ShardedRoadPacks, local_packs
 from megacrn_tpu_torch.kernels.spmm_ell_node import (BucketedShardedNodeELL,
                                                      ShardedNodeELL,
@@ -144,17 +148,34 @@ def make_shardmap_train_step(model, train_cfg, optimizer, mesh: Mesh,
                          mesh.data_group, None, shard_nodes=False)
 
 
+def _node_rows(model, road_supports, mesh: Mesh):
+    """The graph constant of the GSPMD-style steps under a node axis > 1:
+    the rank's rows of a ``sparse_meta`` pattern (what the JAX package's
+    ``"tiles"`` and ``"node_weights"`` sharding constraints row-shard)."""
+    if model.cfg.graph_backend != "sparse_meta":
+        return road_supports
+    if isinstance(road_supports, BlockPattern):
+        return local_block_pattern(road_supports, mesh.node_index, mesh.node)
+    if isinstance(road_supports, (NodeELLPattern, BucketedNodeELLPattern)):
+        return local_node_pattern(road_supports, mesh.node_index, mesh.node)
+    raise TypeError("graph_backend='sparse_meta' requires road_supports="
+                    "NodeELLPattern, BucketedNodeELLPattern or BlockPattern, "
+                    f"got {type(road_supports).__name__}")
+
+
 def make_sharded_train_step(model, train_cfg, optimizer, mesh: Mesh,
                             generator: torch.Generator,
                             scaler_mean: float = 0.0,
                             scaler_std: float = 1.0,
                             road_supports=None) -> Callable:
     """The counterpart of the JAX GSPMD step: ``dense`` and ``sparse_meta``
-    on the data axis, and ``dense`` on the node axis too (each rank builds
-    its rows of the supports and all-gathers the x node blocks; the
-    per-support recursion is kept). ``road_sparse`` and ``dense_ring`` take
-    their own steps, as in JAX; ``sparse_meta`` on a node axis > 1 is not
-    ported yet, and the model's forward refuses it."""
+    on the data axis, and on the node axis too. There each rank all-gathers
+    the x node blocks into its rows of the supports: ``dense`` builds its
+    rows of the meta-graph (the per-support recursion is kept);
+    ``sparse_meta`` takes the whole pattern (``road_supports``) and cuts
+    the rank's rows of it, whose SDDMM and softmax it computes from the
+    whole node embeddings. ``road_sparse`` and ``dense_ring`` take their
+    own steps, as in JAX."""
     backend = model.cfg.graph_backend
     if backend == "road_sparse":
         raise ValueError(
@@ -165,7 +186,8 @@ def make_sharded_train_step(model, train_cfg, optimizer, mesh: Mesh,
                          "make_ring_train_step")
     if mesh.node > 1:
         return _megacrn_step(model, train_cfg, optimizer, generator,
-                             scaler_mean, scaler_std, road_supports,
+                             scaler_mean, scaler_std,
+                             _node_rows(model, road_supports, mesh),
                              mesh.world, mesh.node_group, shard_nodes=True)
     return make_shardmap_train_step(model, train_cfg, optimizer, mesh,
                                     generator, scaler_mean, scaler_std,
@@ -262,12 +284,14 @@ def make_shardmap_eval_forward(model, mesh: Mesh,
 def make_sharded_eval_forward(model, mesh: Mesh,
                               road_supports=None) -> Callable:
     """The eval forward of ``make_sharded_train_step``'s layout: the node
-    axis partitions ``dense`` when it is > 1."""
+    axis partitions ``dense`` and ``sparse_meta`` when it is > 1."""
     if model.cfg.graph_backend == "road_sparse":
         raise ValueError("use make_shardmap_eval_forward or "
                          "make_road_node_eval_forward for road_sparse")
-    return _eval_forward(model, mesh, road_supports,
-                         mesh.node_group if mesh.node > 1 else None)
+    if mesh.node == 1:
+        return _eval_forward(model, mesh, road_supports, None)
+    return _eval_forward(model, mesh, _node_rows(model, road_supports, mesh),
+                         mesh.node_group)
 
 
 def make_road_node_eval_forward(model, mesh: Mesh,

@@ -12,8 +12,12 @@ ring hop, the neighbour's x block arriving by ``comm.ring_shift`` (the
 same product with the x blocks all-gathered at once: the counterpart of
 the all-gather that GSPMD inserts for the ``dense`` backend under a node
 axis. ``cheb_aggregate_sparse_sharded`` runs the block-ELL SpMM (the CUDA
-kernel on the card) on each rank's rectangular row-block packs. All of
-them are differentiable: the shifts and gathers carry their transposes.
+kernel on the card) on each rank's rectangular row-block packs, and
+``cheb_aggregate_learned_node_sharded`` / ``_sparse_sharded`` the learned
+``sparse_meta`` supports on each rank's rows of the edge pattern; these
+three all-gather the x node blocks once and re-gather each further
+Chebyshev level (``cheb_stack_gathered``). All of them are
+differentiable: the shifts and gathers carry their transposes.
 """
 from __future__ import annotations
 
@@ -105,26 +109,76 @@ def make_ring_aggregate(mesh):
     return aggregate
 
 
+def cheb_stack_gathered(num_supports: int, apply_local, x: torch.Tensor,
+                   cheb_k: int, group: Group) -> torch.Tensor:
+    """The Chebyshev stack of the node-partitioned sparse routes:
+    ``apply_local(s, t_full)`` multiplies this rank's rows of support ``s``
+    into the all-gathered (B, N, C) ``t_full``, giving (B, n_loc, C). x is
+    gathered once for every support and each further level re-gathers its
+    input; the output stays node-local, (B, n_loc, S*cheb_k, C), and dx
+    flows back through the gathers' reduce-scatters."""
+    x_full = all_gather_nodes(x, group)
+    terms = []
+    for s in range(num_supports):
+        t_prev, t_cur = x, apply_local(s, x_full)
+        terms += [t_prev, t_cur]
+        for _ in range(2, cheb_k):
+            t_prev, t_cur = t_cur, (
+                2.0 * apply_local(s, all_gather_nodes(t_cur, group))
+                - t_prev)
+            terms.append(t_cur)
+    return torch.stack(terms, dim=2)
+
+
 def cheb_aggregate_sparse_sharded(packs, x: torch.Tensor, cheb_k: int,
                                   group: Group) -> torch.Tensor:
     """Node-partitioned Chebyshev stack over the static sparse road supports:
     each rank holds the (BlockELL (n_loc x N), BlockELL_t (N x n_loc)) pair
-    of its rows for each support (``kernels.spmm.local_packs``),
-    all-gathers the x node blocks over ``group`` and runs the block-ELL
-    SpMM on its rows only. Each further level re-gathers its input
-    (cheb_k - 2 extra gathers per support); the output stays node-local,
-    (B, n_loc, S*cheb_k, C). dx flows back through the transposed packs
-    and the gather's reduce-scatter."""
+    of its rows for each support (``kernels.spmm.local_packs``) and runs
+    the block-ELL SpMM on its rows only (``cheb_stack_gathered``); dx flows
+    back through the transposed packs and the gathers' reduce-scatters."""
     from megacrn_tpu_torch.kernels.spmm import spmm_batched
 
-    x_full = all_gather_nodes(x, group)
-    terms = []
-    for pack, pack_t in packs:
-        t_prev, t_cur = x, spmm_batched(pack, pack_t, x_full)
-        terms += [t_prev, t_cur]
-        for _ in range(2, cheb_k):
-            t_prev, t_cur = t_cur, (
-                2.0 * spmm_batched(pack, pack_t,
-                                   all_gather_nodes(t_cur, group)) - t_prev)
-            terms.append(t_cur)
-    return torch.stack(terms, dim=2)
+    return cheb_stack_gathered(
+        len(packs), lambda s, t_full: spmm_batched(*packs[s], t_full), x,
+        cheb_k, group)
+
+
+def _on_nodes_first(apply, t_full: torch.Tensor) -> torch.Tensor:
+    """``apply`` ((N, B*C) -> (n_loc, B*C), the learned products' layout)
+    on a (B, N, C) block, giving (B, n_loc, C)."""
+    b, n, c = t_full.shape
+    y = apply(t_full.permute(1, 0, 2).reshape(n, b * c))
+    return y.view(-1, b, c).permute(1, 0, 2)
+
+
+def cheb_aggregate_learned_node_sharded(weights, local, x: torch.Tensor,
+                                        cheb_k: int,
+                                        group: Group) -> torch.Tensor:
+    """Node-partitioned Chebyshev stack over learned node-ELL supports:
+    ``weights`` are this rank's rows of each support
+    (``kernels.sparse_graph_node.sparse_meta_graph_node`` of the rank's
+    ``LocalNodePattern`` ``local``); x: (B, n_loc, C) -> (B, n_loc,
+    S*cheb_k, C). The weights' gradients stay on the rank (its rows only);
+    x's come back through the gathers' reduce-scatters."""
+    from megacrn_tpu_torch.kernels.sparse_graph_node import \
+        learned_node_apply
+
+    apply = learned_node_apply(local.pattern)
+    return cheb_stack_gathered(
+        len(weights), lambda s, t_full: _on_nodes_first(
+            lambda v: apply(weights[s], v), t_full), x, cheb_k, group)
+
+
+def cheb_aggregate_learned_sparse_sharded(tiles, local, x: torch.Tensor,
+                                          cheb_k: int,
+                                          group: Group) -> torch.Tensor:
+    """The same stack over learned 128x128-tile supports: ``tiles`` are
+    this rank's (``kernels.sparse_graph.sparse_meta_graph`` of its
+    ``LocalBlockPattern`` ``local``)."""
+    from megacrn_tpu_torch.kernels.sparse_graph import spmm_blocks
+
+    return cheb_stack_gathered(
+        len(tiles), lambda s, t_full: _on_nodes_first(
+            lambda v: spmm_blocks(tiles[s], local, v), t_full), x, cheb_k,
+        group)

@@ -11,7 +11,8 @@
   any of the three predictors.
 
 All three share ``_run_batched``, and each loads an ``.npz`` checkpoint
-that either package wrote (``from_checkpoint``).
+that either package wrote, or a checkpoint directory the port wrote
+(``ckpt_backend="orbax"``), with ``from_checkpoint``.
 """
 from __future__ import annotations
 

@@ -16,19 +16,33 @@ A checkpoint is one ``.npz`` file:
   (the fit loop's scheduled-sampling generator state, the per-column scaler);
 * ``meta/json``: the metadata as uint8 JSON bytes.
 
-Orbax directory checkpoints need the JAX package.
+The directory backend, ``ckpt_backend="orbax"`` in the fit loops and the
+CLIs (the JAX package's name for its directory format, so scripts carry
+over): Orbax needs JAX, so the port writes the same state with
+``torch.distributed.checkpoint`` (DCP) instead, the tensors under the same
+``params/`` and ``opt/`` keys, and ``meta.json`` beside them, the
+``arrays`` encoded in it losslessly as the JAX package encodes them. On a
+mesh every rank calls the save; the state is replicated, so DCP writes
+each tensor once. A directory that Orbax wrote is refused: ``.npz`` is the
+format both packages read.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import tempfile
+import warnings
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 _PORT = "torch/"
+BACKENDS = ("npz", "orbax")
+META_JSON = "meta.json"
+# Files that only an Orbax checkpoint directory holds.
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 
 def _numpy(v) -> np.ndarray:
@@ -62,18 +76,133 @@ def save_checkpoint(path: str, params: Mapping[str, Any],
         raise
 
 
+def _remove(path: str) -> None:
+    if os.path.isdir(path) and not os.path.islink(path):
+        shutil.rmtree(path)
+    elif os.path.lexists(path):
+        os.remove(path)
+
+
+def save_checkpoint_dcp(path: str, params: Mapping[str, Any],
+                        opt_state: Optional[Mapping[str, Any]] = None, *,
+                        metadata: Optional[Dict[str, Any]] = None,
+                        arrays: Optional[Dict[str, Any]] = None,
+                        group=None) -> None:
+    """The directory backend: what ``save_checkpoint`` writes to a file,
+    written as a ``torch.distributed.checkpoint`` directory at ``path``
+    with ``meta.json`` beside the tensors. It is written whole under
+    ``path + ".tmp"`` and then put in place of any checkpoint at ``path``
+    (the best-val overwrite). ``group``: the mesh's world group
+    (``parallel.comm.Group``), whose every rank calls this with the same
+    replicated state; None for one process."""
+    import torch.distributed.checkpoint as dcp
+
+    from megacrn_tpu_torch.parallel.comm import barrier
+
+    def tensor(v):  # a C-ordered host copy (0-d stays 0-d)
+        return torch.from_numpy(np.array(_numpy(v), order="C"))
+
+    state = {f"params/{k}": tensor(v) for k, v in params.items()}
+    state.update({f"opt/{k}": tensor(v)
+                  for k, v in (opt_state or {}).items()})
+    meta = dict(metadata or {})
+    for k, v in (arrays or {}).items():
+        a = _numpy(v)
+        meta[k] = {"__array__": True, "dtype": a.dtype.str,
+                   "data": a.tolist()}
+    path = os.path.abspath(path)
+    tmp, old = path + ".tmp", path + ".old"
+    lead = group is None or group.index == 0
+    if lead:
+        _remove(tmp)
+        _remove(old)
+    if group is not None:
+        barrier(group)
+    dist = group is not None and group.size > 1
+    with warnings.catch_warnings():  # DCP warns when it runs in one process
+        warnings.simplefilter("ignore", UserWarning)
+        dcp.save(state, checkpoint_id=tmp, no_dist=not dist,
+                 process_group=group.pg if dist else None)
+    if lead:
+        with open(os.path.join(tmp, META_JSON), "w") as f:
+            json.dump(meta, f)
+        if os.path.lexists(path):
+            os.replace(path, old)
+        os.replace(tmp, path)
+        _remove(old)
+    if group is not None:
+        barrier(group)
+
+
+def write(backend: str, mesh, path: str, params: Mapping[str, Any],
+          opt_state: Optional[Mapping[str, Any]] = None, *,
+          metadata: Optional[Dict[str, Any]] = None,
+          arrays: Optional[Dict[str, Any]] = None) -> None:
+    """A fit loop's checkpoint write on ``backend`` ('npz': rank 0 writes
+    the file while the others wait; 'orbax': the directory, every rank
+    taking part). Every rank of ``mesh`` (or the one process) calls it."""
+    if backend == "orbax":
+        save_checkpoint_dcp(path, params, opt_state, metadata=metadata,
+                            arrays=arrays,
+                            group=None if mesh is None else mesh.world)
+    elif backend == "npz":
+        from megacrn_tpu_torch.train.logs import write_on_rank0
+
+        write_on_rank0(mesh, lambda: save_checkpoint(
+            path, params, opt_state, metadata=metadata, arrays=arrays))
+    else:
+        raise ValueError(f"unknown ckpt_backend {backend!r}; one of "
+                         f"{BACKENDS}")
+
+
+def _load_dir(path: str):
+    """(params, opt_state, metadata) of a directory ``save_checkpoint_dcp``
+    wrote; an Orbax directory, or any other, is refused."""
+    import torch.distributed.checkpoint as dcp
+
+    inside = [path] + [os.path.join(path, d) for d in os.listdir(path)
+                       if os.path.isdir(os.path.join(path, d))]
+    if any(os.path.exists(os.path.join(d, m))
+           for d in inside for m in _ORBAX_MARKERS):
+        raise ValueError(
+            f"{path} is an Orbax checkpoint (the JAX package's directory "
+            "format), which the port cannot read: it needs JAX. The port's "
+            "directories are torch.distributed.checkpoint ones; save the "
+            "checkpoint as .npz (ckpt_backend='npz'), the format both "
+            "packages read")
+    if not (os.path.exists(os.path.join(path, ".metadata"))
+            and os.path.exists(os.path.join(path, META_JSON))):
+        raise ValueError(
+            f"{path} is a directory but no checkpoint: it holds no "
+            f"torch.distributed.checkpoint .metadata and {META_JSON}")
+    reader = dcp.FileSystemReader(path)
+    state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+             for k, m in reader.read_metadata().state_dict_metadata.items()}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        dcp.load(state, storage_reader=reader, no_dist=True)
+    with open(os.path.join(path, META_JSON)) as f:
+        meta = json.load(f)
+    for k, v in meta.items():
+        if isinstance(v, dict) and v.get("__array__"):
+            meta[k] = np.asarray(v["data"], dtype=np.dtype(v["dtype"]))
+    blob = {k: v.numpy() for k, v in state.items()}
+    return blob, meta
+
+
 def load_checkpoint(path: str) -> Tuple[Dict[str, np.ndarray],
                                         Optional[Dict[str, np.ndarray]],
                                         Dict[str, Any]]:
     """(params, opt_state, metadata): params and opt_state as flat
-    ``{path: array}`` dicts (opt_state None when the file has none)."""
+    ``{path: array}`` dicts (opt_state None when the checkpoint has none).
+    ``path``: an ``.npz`` file (either package's) or a directory that
+    ``save_checkpoint_dcp`` wrote."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is an Orbax directory checkpoint; only the .npz format "
-            "is readable without the JAX package (ROADMAP Queue 1 item 4)")
-    with np.load(path) as z:
-        blob = dict(z)
-    meta = json.loads(bytes(blob.pop("meta/json").tobytes()).decode())
+        blob, meta = _load_dir(path)
+    else:
+        with np.load(path) as z:
+            blob = dict(z)
+        meta = json.loads(bytes(blob.pop("meta/json").tobytes()).decode())
 
     def section(prefix):
         return {k[len(prefix):]: v for k, v in blob.items()

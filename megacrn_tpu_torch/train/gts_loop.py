@@ -32,8 +32,7 @@ from megacrn_tpu_torch.models.gts import GTS
 from megacrn_tpu_torch.ops import losses
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.train import checkpoint as ckpt
-from megacrn_tpu_torch.train.logs import (RunDir, echo_hparams, for_rank,
-                                          write_on_rank0)
+from megacrn_tpu_torch.train.logs import RunDir, echo_hparams, for_rank
 from megacrn_tpu_torch.train.loop import _drain, _param_dtype, to_device
 from megacrn_tpu_torch.train.optim import clip_gradients
 from megacrn_tpu_torch.train.steps import _metric_steps, summarize_eval
@@ -140,7 +139,8 @@ def make_gts_eval_step(model: GTS, scaler_mean, scaler_std,
 def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
             node_feas: np.ndarray, knn_prior: np.ndarray, run: RunDir,
             max_epochs: Optional[int] = None, initial_state=None,
-            gumbel_noise: bool = True, device=None, mesh=None) -> Dict:
+            gumbel_noise: bool = True, device=None, mesh=None,
+            ckpt_backend: str = "npz") -> Dict:
     """Train GTS with the reference protocol.
 
     ``data``: train/val/test BatchLoaders and scaler_mean/std, as for
@@ -151,10 +151,13 @@ def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
     weights go to ``run.checkpoint_path`` and the BatchNorm state to
     ``run.checkpoint_path + ".bn"``, as the JAX package writes them.
     ``mesh``: a ``parallel.mesh.Mesh`` (data axis); every rank of it calls
-    ``fit_gts`` with the same arguments.
+    ``fit_gts`` with the same arguments. ``ckpt_backend``: 'npz' or
+    'orbax' (two directories, as ``train.loop.fit`` writes one).
     Returns {params, bn_state (flat JAX naming), model, test_metrics,
     best_val}.
     """
+    if ckpt_backend not in ckpt.BACKENDS:
+        raise ValueError(f"unknown ckpt_backend {ckpt_backend!r}")
     device = resolve_device(device)
     run = for_rank(run, mesh)
     logger = run.get_logger()
@@ -207,10 +210,11 @@ def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
 
     def save_best(epoch):
         params, bn_state = flat_from_gts_state_dict(model.state_dict(), cfg)
-        ckpt.save_checkpoint(run.checkpoint_path, params, metadata={
-            "epoch": epoch, "bn_state": None,
-            "scaler_mean": float(mean), "scaler_std": float(std)})
-        ckpt.save_checkpoint(run.checkpoint_path + ".bn", bn_state)
+        ckpt.write(ckpt_backend, mesh, run.checkpoint_path, params,
+                   metadata={"epoch": epoch, "bn_state": None,
+                             "scaler_mean": float(mean),
+                             "scaler_std": float(std)})
+        ckpt.write(ckpt_backend, mesh, run.checkpoint_path + ".bn", bn_state)
 
     batches_seen, min_val, wait = 0, float("inf"), 0
     epochs = max_epochs if max_epochs is not None else train_cfg.epochs
@@ -236,7 +240,7 @@ def fit_gts(cfg: GTSConfig, train_cfg: TrainConfig, data: Dict,
                          "steps": len(tl), "sec_per_step": train_s / len(tl)})
         if val["loss"] < min_val:
             wait, min_val = 0, val["loss"]
-            write_on_rank0(mesh, lambda: save_best(epoch))
+            save_best(epoch)
         else:
             wait += 1
             if wait == train_cfg.patience:

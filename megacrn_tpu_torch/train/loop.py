@@ -39,8 +39,7 @@ from megacrn_tpu_torch.models.megacrn import MegaCRN
 from megacrn_tpu_torch.nn.init import xavier_uniform
 from megacrn_tpu_torch.train import checkpoint as ckpt
 from megacrn_tpu_torch.train import telemetry as tele
-from megacrn_tpu_torch.train.logs import (RunDir, echo_hparams, for_rank,
-                                          write_on_rank0)
+from megacrn_tpu_torch.train.logs import RunDir, echo_hparams, for_rank
 from megacrn_tpu_torch.train.optim import make_lr_scheduler, make_optimizer
 from megacrn_tpu_torch.train.steps import (_metric_steps, eval_metrics,
                                            make_eval_step, make_train_step,
@@ -184,8 +183,9 @@ def fit(
 
     ``data`` keys: train_loader / val_loader / test_loader (BatchLoader),
     scaler_mean, scaler_std (scalars).
-    ``ckpt_backend``: 'npz' (single-file atomic); Orbax needs the JAX
-    package.
+    ``ckpt_backend``: 'npz' (single-file atomic) or 'orbax' (a directory,
+    which the port writes with ``torch.distributed.checkpoint``:
+    ``train.checkpoint.save_checkpoint_dcp``).
     ``road_supports``: the graph constant of a ``road_sparse`` or
     ``sparse_meta`` config (``models.megacrn.road_supports_to`` lists
     them), moved to the device here.
@@ -206,10 +206,8 @@ def fit(
     Returns {params (flat JAX naming, numpy), model, best_val, test_metrics,
     epochs_run}.
     """
-    if ckpt_backend != "npz":
-        raise NotImplementedError(
-            f"ckpt_backend={ckpt_backend!r} needs the JAX package (Orbax); "
-            "the port writes .npz checkpoints (ROADMAP Queue 1 item 4)")
+    if ckpt_backend not in ckpt.BACKENDS:
+        raise ValueError(f"unknown ckpt_backend {ckpt_backend!r}")
     device = resolve_device(device)
     run = for_rank(run, mesh)
     logger = run.get_logger()
@@ -374,8 +372,8 @@ def fit(
         if val["loss"] < min_val_loss:
             wait = 0
             min_val_loss = val["loss"]
-            write_on_rank0(mesh, lambda: ckpt.save_checkpoint(
-                run.checkpoint_path,
+            ckpt.write(
+                ckpt_backend, mesh, run.checkpoint_path,
                 flat_from_state_dict(model.state_dict(), model_cfg.num_layers),
                 ckpt.optimizer_state(optimizer, scheduler, named),
                 metadata={"epoch": epoch, "batches_seen": batches_seen,
@@ -386,7 +384,7 @@ def fit(
                 # (its state for epoch+1) and the scaler stats as arrays.
                 arrays={"sampling_rng_state": sampling_gen.get_state(),
                         "scaler_mean_arr": np.asarray(mean),
-                        "scaler_std_arr": np.asarray(std)}))
+                        "scaler_std_arr": np.asarray(std)})
         else:
             wait += 1
             if wait == train_cfg.patience:

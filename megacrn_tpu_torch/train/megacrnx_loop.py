@@ -44,8 +44,7 @@ from megacrn_tpu_torch.models.megacrnx import (MegaCRNx, MegaCRNxConfig,
 from megacrn_tpu_torch.ops import losses, metrics
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.train import checkpoint as ckpt
-from megacrn_tpu_torch.train.logs import (RunDir, echo_hparams, for_rank,
-                                          write_on_rank0)
+from megacrn_tpu_torch.train.logs import RunDir, echo_hparams, for_rank
 from megacrn_tpu_torch.train.loop import (_param_dtype,
                                           _reinit_xavier_uniform, to_device)
 
@@ -174,7 +173,7 @@ class _XYCovLoader:
 def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
                  data: Dict, run: RunDir, *,
                  max_epochs: Optional[int] = None, initial_params=None,
-                 device=None, mesh=None) -> Dict:
+                 device=None, mesh=None, ckpt_backend: str = "npz") -> Dict:
     """Train MegaCRNx with the model_futurework protocol.
 
     ``data`` keys: ``x_trainval`` (SCALED), ``y_trainval`` (raw),
@@ -184,10 +183,13 @@ def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
     the JAX package's flat naming, in place of the seeded init. ``device``:
     the card unless the caller says otherwise (``resolve_device``).
     ``mesh``: a ``parallel.mesh.Mesh``; every rank of it calls
-    ``fit_megacrnx`` with the same arguments.
+    ``fit_megacrnx`` with the same arguments. ``ckpt_backend``: 'npz' or
+    'orbax' (a directory, as ``train.loop.fit`` writes it).
     Returns {params (best, flat JAX naming), model, best_val,
     test_metrics, epochs_run}.
     """
+    if ckpt_backend not in ckpt.BACKENDS:
+        raise ValueError(f"unknown ckpt_backend {ckpt_backend!r}")
     device = resolve_device(device)
     run = for_rank(run, mesh)
     logger = run.get_logger()
@@ -240,8 +242,8 @@ def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
         return train_step(*to_device(arrays, device))
 
     def save_best(epoch, best):
-        ckpt.save_checkpoint(
-            run.checkpoint_path,
+        ckpt.write(
+            ckpt_backend, mesh, run.checkpoint_path,
             flat_from_megacrnx_state_dict(model.state_dict(),
                                           model_cfg.num_layers),
             metadata={"epoch": epoch, "best_val": best,
@@ -277,7 +279,7 @@ def fit_megacrnx(model_cfg: MegaCRNxConfig, train_cfg: MegaCRNxTrainConfig,
         if val["loss"] < min_val_loss:
             wait = 0
             min_val_loss = val["loss"]
-            write_on_rank0(mesh, lambda: save_best(epoch, min_val_loss))
+            save_best(epoch, min_val_loss)
         else:
             wait += 1
             if wait == train_cfg.patience:

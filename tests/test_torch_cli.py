@@ -1,8 +1,8 @@
 """The port's traintest CLI (megacrn_tpu_torch.cli.traintest) end to end on
-the CPU (``--device cpu``): every ported capability reachable by flag, the
-run-dir artifact contract, and every flag of the JAX CLI that the port does
-not have yet (Orbax, ``sparse_meta`` on a node axis) refused with its
-ROADMAP item; the mesh runs are in tests/test_torch_mesh_harness.py."""
+the CPU (``--device cpu``): every capability reachable by flag (the
+directory checkpoints of ``--ckpt_backend orbax`` and ``sparse_meta`` on a
+node axis among them) and the run-dir artifact contract; the other mesh
+runs are in tests/test_torch_mesh_harness.py."""
 import json
 import os
 
@@ -107,22 +107,35 @@ def test_cli_eval_aggregation_concat(tmp_path):
     assert {"mae", "mape", "rmse", "mae_3"} <= set(result["test_metrics"])
 
 
-@pytest.mark.parametrize("flags,item", [
-    # dense_ring and the mesh are ported: with them only Orbax refuses.
-    (["--graph_backend", "dense_ring", "--ckpt_backend", "orbax"], "item 4"),
-    (["--mesh_data", "2", "--ckpt_backend", "orbax"], "item 4"),
-    (["--graph_backend", "sparse_meta", "--mesh_node", "2"], "item 11"),
-    (["--ckpt_backend", "orbax"], "item 4"),
-])
-def test_cli_unported_flags_exit_naming_their_roadmap_item(tmp_path, flags,
-                                                           item):
-    with pytest.raises(SystemExit,
-                       match=f"not ported yet: .*ROADMAP Queue 1 {item} ") as e:
-        _run(tmp_path, flags)
-    assert os.listdir(tmp_path) == []
-    refused = str(e.value)
-    assert "dense_ring" not in refused and "--mesh_data" not in refused
-    assert refused.count("item") == 1
+@pytest.mark.parametrize("flags", [
+    ["--graph_backend", "dense_ring", "--ckpt_backend", "orbax"],
+    ["--mesh_data", "2", "--ckpt_backend", "orbax"],
+    ["--graph_backend", "sparse_meta", "--mesh_node", "2"],
+    ["--ckpt_backend", "orbax"],
+], ids=["dense_ring_orbax", "mesh_data_orbax", "sparse_meta_mesh_node",
+        "orbax"])
+def test_cli_once_refused_flags_run(tmp_path, flags):
+    """The flag sets the port refused until it had directory checkpoints
+    and ``sparse_meta`` on a node axis now train and test (a mesh flag
+    spawns its two CPU ranks); ``--ckpt_backend orbax`` leaves a
+    torch.distributed.checkpoint directory that ``load_checkpoint``
+    reads."""
+    from megacrn_tpu_torch.train import checkpoint as tckpt
+
+    result = main(BASE + ["--save_dir", str(tmp_path), "--device", "cpu"]
+                  + flags)
+    spawned = "--mesh_data" in flags or "--mesh_node" in flags
+    assert (result is None) == spawned
+    run = _run_dir(tmp_path)
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        (final,) = [r["final_test"] for r in map(json.loads, f)
+                    if "final_test" in r]
+    assert all(np.isfinite(v) for v in final.values())
+    (ckpt_path,) = [os.path.join(run, f) for f in os.listdir(run)
+                    if f.endswith(".npz")]
+    assert os.path.isdir(ckpt_path) == ("orbax" in flags)
+    flat, opt, meta = tckpt.load_checkpoint(ckpt_path)
+    assert meta["epoch"] == 0 and opt and "memory/We1" in flat
 
 
 @pytest.mark.parametrize("flags,backend,constant,knobs", [

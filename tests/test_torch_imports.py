@@ -75,7 +75,14 @@ def test_port_imports_no_jax_no_jax_package_and_no_pandas():
                 "megacrn_tpu_torch.parallel.multihost",
                 "megacrn_tpu_torch.parallel.launch",
                 "megacrn_tpu_torch.parallel.ring",
-                "megacrn_tpu_torch.parallel.api"):
+                "megacrn_tpu_torch.parallel.api",
+                # the last slice: the offline tools, debug, prefetch, the
+                # host library
+                "megacrn_tpu_torch.cli.generate_data",
+                "megacrn_tpu_torch.cli.summary",
+                "megacrn_tpu_torch.train.debug",
+                "megacrn_tpu_torch.train.prefetch",
+                "megacrn_tpu_torch.data.native"):
         assert mod in res["modules"]
 
 

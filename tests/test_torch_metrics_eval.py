@@ -298,5 +298,6 @@ def test_jax_checkpoint_loads_params_and_refuses_resume(tmp_path):
     with pytest.raises(ValueError, match="no optimizer state written by"):
         tckpt.restore_optimizer(opt, sched, opt_flat,
                                 list(model.named_parameters()))
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    # A directory that holds no checkpoint is refused.
+    with pytest.raises(ValueError, match="no checkpoint"):
         tckpt.load_checkpoint(str(tmp_path))

@@ -232,19 +232,55 @@ def test_state_dict_names_round_trip_through_jax_naming():
     assert model.proj[0].weight.shape == (cfg.output_dim, cfg.decoder_dim)
 
 
-@pytest.mark.parametrize("backend", ["sparse_meta"])
-def test_backends_not_ported_yet_raise(backend):
-    """``sparse_meta`` on a node axis > 1 is item 11's remainder: the
-    forward refuses it before any collective (a two-rank node group that
-    needs no process group to be refused)."""
-    from megacrn_tpu_torch.parallel.comm import Group
+@pytest.mark.parametrize("impl", ["node", "bucketed", "block"])
+def test_sparse_meta_on_a_node_group_computes_the_rank_s_rows(monkeypatch,
+                                                              impl):
+    """``sparse_meta`` under a two-rank node group (the forward a
+    node-partitioned step runs, which refused it before the port had it):
+    each rank's forward on its rows of the pattern gives its rows of the
+    single-device forward. One process plays both ranks: the graph, the
+    node embeddings and the batch repeat across the two node halves, so
+    the all-gather of a rank's block is that block twice."""
+    from megacrn_tpu_torch.kernels.sparse_graph import (build_block_pattern,
+                                                        local_block_pattern)
+    from megacrn_tpu_torch.kernels.sparse_graph_node import (
+        build_node_pattern, build_node_pattern_bucketed, local_node_pattern)
+    from megacrn_tpu_torch.parallel import comm
 
-    cfg = MegaCRNConfig(num_nodes=8, rnn_units=4, mem_num=2, mem_dim=4,
-                        horizon=2, seq_len=2, graph_backend=backend)
-    model = MegaCRN(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 2, 4, 1), torch.zeros(1, 2, 4, 1),
-              node_group=Group(None, (0, 1), 0))
+    monkeypatch.setattr(comm, "all_gather", lambda t, group, dim: torch.cat(
+        [t] * group.size, dim))
+    n, half = 8, 4
+    rs = np.random.RandomState(3)
+    a, b = ((rs.rand(half, half) < 0.4).astype(np.float32) for _ in "ab")
+    np.fill_diagonal(a, 1.0)
+    a[1] = 1.0  # a hub row: degrees that bucket
+    adj = np.block([[a, b], [b, a]])
+    build = {"node": lambda m: build_node_pattern(m, max_buckets=1),
+             "bucketed": lambda m: build_node_pattern_bucketed(m, 3),
+             "block": build_block_pattern}[impl]
+    pattern = build(adj)
+    cfg = MegaCRNConfig(num_nodes=n, rnn_units=4, mem_num=2, mem_dim=4,
+                        horizon=2, seq_len=2, graph_backend="sparse_meta",
+                        compute_dtype="float64")
+    model = MegaCRN(cfg, device="cpu", dtype=torch.float64)
+    with torch.no_grad():
+        for k in ("We1", "We2"):
+            model.memory[k][half:] = model.memory[k][:half]
+    x, yc = (torch.cat([t, t], 2) for t in torch.randn(
+        2, 2, 2, half, 1, dtype=torch.float64,
+        generator=torch.Generator().manual_seed(0)))
+    want = model(x, yc, road_supports=pattern).output
+    local = (local_block_pattern if impl == "block" else local_node_pattern)
+    for index in (0, 1):
+        rows = slice(index * half, (index + 1) * half)
+        got = model(x[:, :, rows], yc[:, :, rows],
+                    road_supports=local(pattern, index, 2),
+                    node_group=comm.Group(None, (0, 1), index)).output
+        torch.testing.assert_close(got, want[:, :, rows], rtol=1e-12,
+                                   atol=1e-12)
+    with pytest.raises(ValueError, match="rank's rows of the pattern"):
+        model(x[:, :, :half], yc[:, :, :half], road_supports=pattern,
+              node_group=comm.Group(None, (0, 1), 0))
 
 
 def test_dense_ring_outside_a_mesh_is_the_dense_path():

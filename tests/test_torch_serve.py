@@ -181,8 +181,23 @@ def test_checkpoint_written_by_port_loads_in_jax(tmp_path):
 
 
 def test_orbax_directory_checkpoint_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        tckpt.load_checkpoint(str(tmp_path))
+    """A directory the JAX package wrote with Orbax is refused by name,
+    pointing at .npz (the port's own directories are
+    torch.distributed.checkpoint ones: tests/test_torch_checkpoint_dir.py),
+    by the reader and by a predictor."""
+    jcfg = JConfig(num_nodes=6, rnn_units=4, mem_num=3, mem_dim=4,
+                   horizon=2, seq_len=2)
+    path = str(tmp_path / "orbax_ckpt")
+    jckpt.save_checkpoint_orbax(
+        path, jmegacrn.init_params(jax.random.PRNGKey(0), jcfg),
+        metadata={"epoch": 0})
+    with pytest.raises(ValueError, match="Orbax.*npz"):
+        tckpt.load_checkpoint(path)
+    with pytest.raises(ValueError, match="Orbax"):
+        tserve.Predictor.from_checkpoint(
+            path, MegaCRNConfig(num_nodes=6, rnn_units=4, mem_num=3,
+                                mem_dim=4, horizon=2, seq_len=2),
+            device="cpu")
 
 
 def test_inverse_transform_zero_snap_matches_jax():

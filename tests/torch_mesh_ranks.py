@@ -47,11 +47,28 @@ def _pin_draws(case):
         tgts.gumbel_uniforms = lambda shape, g, dt: torch.tensor(u, dtype=dt)
 
 
+def _pattern(case):
+    """The case's whole ``sparse_meta`` edge pattern (the sharded steps cut
+    each rank's rows of it themselves)."""
+    from megacrn_tpu_torch.kernels.sparse_graph import build_block_pattern
+    from megacrn_tpu_torch.kernels.sparse_graph_node import (
+        build_node_pattern, build_node_pattern_bucketed)
+
+    adj = case["pattern_adj"]
+    if case["road"] == "block_pattern":
+        return build_block_pattern(adj)
+    if case["road"] == "node_pattern":
+        return build_node_pattern(adj, max_buckets=1)
+    return build_node_pattern_bucketed(adj, case["max_buckets"])
+
+
 def _road(case, mesh):
     """The case's road constant, cut for the mesh's node axis."""
     kind = case.get("road")
     if kind is None:
         return None
+    if kind.endswith("_pattern"):
+        return _pattern(case)
     sups = case["supports"]
     if kind == "coo":
         from megacrn_tpu_torch.kernels.spmm_coo import build_stacked_road_pack
@@ -71,6 +88,8 @@ def _single_road(case):
     kind = case.get("road")
     if kind is None:
         return None
+    if kind.endswith("_pattern"):
+        return _pattern(case)
     sups = case["supports"]
     if kind == "coo":
         from megacrn_tpu_torch.kernels.spmm_coo import build_stacked_road_pack
@@ -164,6 +183,35 @@ def road_node_eval(case, mesh):
                                   road_supports=_single_road(case)
                                   ).output.numpy()
     return out
+
+
+def sharded_eval(case, mesh):
+    """The GSPMD-style eval forward's gathered output (the node axis
+    partitioning the case's backend), and on rank 0 the single-device
+    forward's."""
+    from megacrn_tpu_torch.parallel import api
+    from megacrn_tpu_torch.parallel.mesh import shard_batch
+
+    model = _megacrn(case, torch.float32)
+    fwd = api.make_sharded_eval_forward(model, mesh, _road(case, mesh))
+    x, yc = shard_batch((case["x"], case["yc"]), mesh, nodes=fwd.shard_nodes)
+    out = {"output": fwd(torch.from_numpy(x), torch.from_numpy(yc))
+           .output.numpy()}
+    if mesh.rank == 0:
+        with torch.no_grad():
+            out["single"] = model(torch.from_numpy(case["x"]),
+                                  torch.from_numpy(case["yc"]),
+                                  road_supports=_single_road(case)
+                                  ).output.numpy()
+    return out
+
+
+def cli(case, mesh):
+    """A CLI's ``main`` inside this group (it builds its own mesh)."""
+    import importlib
+
+    importlib.import_module(case["cli"]).main(case["argv"])
+    return {}
 
 
 def ring_aggregate(case, mesh):
@@ -263,6 +311,7 @@ def megacrnx_step(case, mesh):
 
 
 KINDS = {"megacrn_step": megacrn_step, "road_node_eval": road_node_eval,
+         "sharded_eval": sharded_eval, "cli": cli,
          "ring_aggregate": ring_aggregate, "gts_step": gts_step,
          "megacrnx_step": megacrnx_step}
 
@@ -326,7 +375,8 @@ def fit_runs(spec_path, out_dir):
                        initial_params=spec["init"],
                        road_supports=_road(spec, mesh), device="cpu",
                        mesh=mesh, max_epochs=spec.get("max_epochs"),
-                       resume=spec.get("resume", False))
+                       resume=spec.get("resume", False),
+                       ckpt_backend=spec.get("ckpt_backend", "npz"))
         results[spec["name"]] = {
             "params": flat_from_state_dict(out["model"].state_dict(),
                                            cfg.num_layers),
