@@ -600,7 +600,8 @@ def profile(what, fn, unprofiled_ms):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name, count = {}, 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # The program's spans also show on the device as annotations.
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             count += 1
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
@@ -1289,7 +1290,8 @@ def device_kernels(fn, calls=3):
             fn()
         torch.cuda.synchronize()
     events = prof.events()
-    on_device = sum(e.device_type == DeviceType.CUDA for e in events)
+    on_device = sum(e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation for e in events)
     launched = sum(e.device_type == DeviceType.CPU
                    and "LaunchKernel" in e.name for e in events)
     return round(max(on_device, launched) / calls)

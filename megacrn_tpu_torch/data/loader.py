@@ -14,6 +14,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from megacrn_tpu_torch.train.telemetry import span
+
 
 def load_pickle(pickle_file: str):
     """Reference-parity pickle loader (model/utils.py:162-172): retries with
@@ -99,8 +101,9 @@ class BatchLoader:
                 gen = np.random.default_rng((self._seed, self._epoch))
             else:
                 gen = self.rng
-            perm = gen.permutation(self.size)
-            xs, ys = self._gather(xs, perm), self._gather(ys, perm)
+            with span("data.reshuffle", bytes=xs.nbytes + ys.nbytes):
+                perm = gen.permutation(self.size)
+                xs, ys = self._gather(xs, perm), self._gather(ys, perm)
         for i in range(self.num_batch):
             s = i * self.batch_size
             yield xs[s:s + self.batch_size], ys[s:s + self.batch_size]
@@ -113,7 +116,8 @@ def prepare_x_y(
     (model/traintest_MegaCRN.py:33-48): encoder sees x[..., :input_dim]; the
     target is y[..., :output_dim]; the remaining y channels become the decoder
     covariate y_cov."""
-    x0 = np.ascontiguousarray(x[..., :input_dim], dtype=np.float32)
-    y0 = np.ascontiguousarray(y[..., :output_dim], dtype=np.float32)
-    y_cov = np.ascontiguousarray(y[..., output_dim:], dtype=np.float32)
+    with span("data.prepare"):
+        x0 = np.ascontiguousarray(x[..., :input_dim], dtype=np.float32)
+        y0 = np.ascontiguousarray(y[..., :output_dim], dtype=np.float32)
+        y_cov = np.ascontiguousarray(y[..., output_dim:], dtype=np.float32)
     return x0, y0, y_cov

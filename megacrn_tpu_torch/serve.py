@@ -10,9 +10,12 @@
   time a new observation step arrives once the window is warm; it drives
   any of the three predictors.
 
-All three share ``_run_batched``, and each loads an ``.npz`` checkpoint
-that either package wrote, or a checkpoint directory the port wrote
-(``ckpt_backend="orbax"``), with ``from_checkpoint``.
+All three share ``_run_batched``, which records the serving spans of
+``train.telemetry`` (``serve.predict`` a request, ``serve.chunk`` with its
+``windows`` and ``padded`` counts, and in each chunk ``serve.upload``,
+``serve.forward`` and ``serve.copy_back``), and each loads an ``.npz``
+checkpoint that either package wrote, or a checkpoint directory the port
+wrote (``ckpt_backend="orbax"``), with ``from_checkpoint``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from megacrn_tpu_torch.models.megacrn import (DTYPES, MegaCRN,
                                               road_supports_to)
 from megacrn_tpu_torch.models.megacrnx import MegaCRNx
 from megacrn_tpu_torch.ops.scaling import inverse_transform
+from megacrn_tpu_torch.train.telemetry import span
 
 
 class Predictor:
@@ -89,12 +93,11 @@ class Predictor:
 
     @torch.inference_mode()
     def _forward(self, x: np.ndarray, y_cov: np.ndarray) -> np.ndarray:
-        x = _normalised(x, self.mean, self.std, self.device)
-        y_cov = torch.tensor(y_cov, device=self.device)
-        out = self.model(x[..., :self.cfg.input_dim], y_cov,
-                         road_supports=self.road_supports)
-        return inverse_transform(out.output, self.std,
-                                 self.mean).cpu().numpy()
+        x, y_cov = _upload(self.device, self.mean, self.std, x, y_cov)
+        with span("serve.forward"):
+            out = self.model(x[..., :self.cfg.input_dim], y_cov,
+                             road_supports=self.road_supports)
+        return _copy_back(out.output, self.std, self.mean)
 
     def predict(self, x: np.ndarray,
                 y_cov: Optional[np.ndarray] = None) -> np.ndarray:
@@ -116,23 +119,36 @@ def _run_batched(fwd, max_batch: int, arrays) -> np.ndarray:
     arrays."""
     b = arrays[0].shape[0]
     outs = []
-    for s in range(0, b, max_batch):
-        chunk = [a[s:s + max_batch] for a in arrays]
-        nb = len(chunk[0])
-        if nb < max_batch:
+    with span("serve.predict", windows=b):
+        for s in range(0, b, max_batch):
+            chunk = [a[s:s + max_batch] for a in arrays]
+            nb = len(chunk[0])
             pad = max_batch - nb
-            chunk = [np.concatenate([c, np.repeat(c[-1:], pad, 0)])
-                     for c in chunk]
-        outs.append(np.asarray(fwd(*chunk))[:nb])
-    return np.concatenate(outs, axis=0)
+            with span("serve.chunk", windows=nb, padded=pad):
+                if pad:
+                    chunk = [np.concatenate([c, np.repeat(c[-1:], pad, 0)])
+                             for c in chunk]
+                outs.append(np.asarray(fwd(*chunk))[:nb])
+        return np.concatenate(outs, axis=0)
 
 
-def _normalised(x: np.ndarray, mean: float, std: float,
-                device: torch.device) -> torch.Tensor:
-    """Raw windows -> a tensor on ``device`` with channel 0 normalised."""
-    x = torch.tensor(x, device=device)  # a copy: edited in place
-    x[..., 0] = (x[..., 0] - mean) / std
-    return x
+def _upload(device: torch.device, mean: float, std: float, x: np.ndarray,
+            *others: np.ndarray):
+    """Raw windows -> a tensor on ``device`` with channel 0 normalised,
+    and ``others`` -> tensors on ``device``, each a copy."""
+    with span("serve.upload",
+              bytes=x.nbytes + sum(o.nbytes for o in others)):
+        t = torch.tensor(x, device=device)  # a copy: edited in place
+        t[..., 0] = (t[..., 0] - mean) / std
+        return (t, *(torch.tensor(o, device=device) for o in others))
+
+
+def _copy_back(output: torch.Tensor, std, mean) -> np.ndarray:
+    """The raw-scale forecasts in host memory; the host waits here for
+    the card."""
+    with span("serve.copy_back",
+              bytes=output.numel() * output.element_size()):
+        return inverse_transform(output, std, mean).cpu().numpy()
 
 
 class GTSPredictor:
@@ -187,11 +203,12 @@ class GTSPredictor:
 
     @torch.inference_mode()
     def _forward(self, x: np.ndarray) -> np.ndarray:
-        x = _normalised(x, self.mean, self.std, self.device)
-        out = self.model(x[..., :self.cfg.input_dim], None, training=False,
-                         gumbel_noise=False, graph=self.graph)
-        return inverse_transform(out.output, self.std,
-                                 self.mean).cpu().numpy()
+        x, = _upload(self.device, self.mean, self.std, x)
+        with span("serve.forward"):
+            out = self.model(x[..., :self.cfg.input_dim], None,
+                             training=False, gumbel_noise=False,
+                             graph=self.graph)
+        return _copy_back(out.output, self.std, self.mean)
 
     def predict(self, x: np.ndarray, y_cov=None) -> np.ndarray:
         """x: (B, seq_len, N, >=input_dim) RAW windows, channel 0 = speed.
@@ -237,11 +254,10 @@ class MegaCRNxPredictor:
 
     @torch.inference_mode()
     def _forward(self, x: np.ndarray, y_cov: np.ndarray) -> np.ndarray:
-        x = _normalised(x, self.mean, self.std, self.device)
-        out = self.model(x[..., :self.cfg.input_dim],
-                         torch.as_tensor(y_cov, device=self.device))
-        return inverse_transform(out.output, self.std,
-                                 self.mean).cpu().numpy()
+        x, y_cov = _upload(self.device, self.mean, self.std, x, y_cov)
+        with span("serve.forward"):
+            out = self.model(x[..., :self.cfg.input_dim], y_cov)
+        return _copy_back(out.output, self.std, self.mean)
 
     def predict(self, x: np.ndarray,
                 y_cov: Optional[np.ndarray] = None) -> np.ndarray:
@@ -280,8 +296,9 @@ class StreamingForecaster:
             self._window.pop(0)
         if len(self._window) < self.cfg.seq_len:
             return None
-        x = np.stack(self._window)[None]  # (1, T, N, C)
-        y_cov = None
-        if self._cov_fn is not None:
-            y_cov = np.asarray(self._cov_fn(self._t), np.float32)[None]
-        return self.predictor.predict(x, y_cov)[0]
+        with span("serve.push"):
+            x = np.stack(self._window)[None]  # (1, T, N, C)
+            y_cov = None
+            if self._cov_fn is not None:
+                y_cov = np.asarray(self._cov_fn(self._t), np.float32)[None]
+            return self.predictor.predict(x, y_cov)[0]

@@ -68,11 +68,14 @@ def _reinit_xavier_uniform(model: torch.nn.Module,
 def to_device(arrays, device: torch.device) -> List[torch.Tensor]:
     """numpy arrays -> tensors on ``device``. To the card they go through
     pinned host memory without blocking the host: a copy from pageable
-    memory would wait for all the work queued before it."""
-    tensors = [torch.from_numpy(a) for a in arrays]
-    if device.type != "cuda":
-        return [t.to(device) for t in tensors]
-    return [t.pin_memory().to(device, non_blocking=True) for t in tensors]
+    memory would wait for all the work queued before it. Records a
+    ``train.upload`` span."""
+    with tele.span("train.upload", bytes=sum(a.nbytes for a in arrays)):
+        tensors = [torch.from_numpy(a) for a in arrays]
+        if device.type != "cuda":
+            return [t.to(device) for t in tensors]
+        return [t.pin_memory().to(device, non_blocking=True)
+                for t in tensors]
 
 
 def _drain(device_metrics: List[Dict[str, torch.Tensor]]) -> List[Dict]:
@@ -282,10 +285,9 @@ def fit(
                        model_cfg.output_dim, device)
         return out, time.perf_counter() - t
 
-    # Per-epoch throughput accounting (telemetry.StepTimer's edges/s
-    # derivation at epoch granularity, so no per-step host sync). The
-    # analytic edge count covers the dense backend; sparse backends report
-    # steps/s only.
+    # Per-epoch throughput accounting (edges/s at epoch granularity, so no
+    # per-step host sync). The analytic edge count covers the dense
+    # backend; sparse backends report steps/s only.
     edges_per_step = None
     if model_cfg.graph_backend == "dense":
         edges_per_step = tele.edge_traversals_per_step(
@@ -303,18 +305,16 @@ def fit(
     epochs_run = 0
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
+        epoch_ns = tele.clock_ns()
         t_steady = t0
         steady_offset = 0  # steps excluded from throughput accounting
         step_in_epoch = 0
-        upload_s = 0.0
         train_losses = []
         if hasattr(data["train_loader"], "set_epoch"):
             data["train_loader"].set_epoch(epoch)
         for x, y in data["train_loader"]:
-            t_up = time.perf_counter()
             x0, y0, y_cov = to_device(place(prepare_x_y(
                 x, y, model_cfg.input_dim, model_cfg.output_dim)), device)
-            upload_s += time.perf_counter() - t_up
             train_losses.append(train_step(x0, y0, y_cov, batches_seen))
             batches_seen += 1
             step_in_epoch += 1
@@ -338,6 +338,11 @@ def fit(
         train_loss = float(np.mean(
             torch.stack(train_losses).cpu().numpy().astype(np.float64)))
         train_dt = time.perf_counter() - t_steady
+        train_ns = tele.clock_ns()
+        # The host's time in the epoch's uploads and in the loader (its
+        # reshuffle and batch preparation), from the spans.
+        upload_s = tele.total_seconds("train.upload", epoch_ns, train_ns)
+        loader_s = tele.total_seconds("data.", epoch_ns, train_ns)
         steady_steps = step_in_epoch - steady_offset
         profiler.close()  # an epoch shorter than the trace window
         profile_stop = None
@@ -359,7 +364,8 @@ def fit(
         run.log_metrics({"epoch": epoch + 1, "train_loss": train_loss,
                          "val": val, "seconds": dt, "train_seconds": train_dt,
                          "steady_steps": steady_steps,
-                         "upload_seconds": upload_s, "val_seconds": val_s,
+                         "upload_seconds": upload_s,
+                         "loader_seconds": loader_s, "val_seconds": val_s,
                          **throughput})
 
         if test_every_epoch:

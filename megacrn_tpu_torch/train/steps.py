@@ -26,6 +26,7 @@ from megacrn_tpu_torch.models.megacrn import (DTYPES, MegaCRN, MegaCRNOutput,
 from megacrn_tpu_torch.ops import losses
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.train.optim import clip_gradients
+from megacrn_tpu_torch.train.telemetry import span
 
 
 def composite_loss(out: MegaCRNOutput, y: torch.Tensor,
@@ -81,18 +82,24 @@ def make_train_step(model: MegaCRN, train_cfg: TrainConfig,
     """Returns ``(x, y, y_cov, batches_seen) -> loss``: one optimizer step
     over ``model`` (forward with scheduled sampling drawn from
     ``generator``, composite loss, backward, clip, Adam). The returned loss
-    is detached and stays on the device."""
+    is detached and stays on the device. Each call records a ``train.step``
+    span with ``train.forward``, ``train.backward`` and ``train.optimizer``
+    (the clip and Adam) inside."""
     loss_fn = make_loss_fn(model, train_cfg, scaler_mean, scaler_std,
                            road_supports)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(x, y, y_cov, batches_seen):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(x, y, y_cov, batches_seen, generator)
-        loss.backward()
-        clip_gradients(params, train_cfg)
-        optimizer.step()
-        return loss.detach()
+        with span("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss = loss_fn(x, y, y_cov, batches_seen, generator)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                clip_gradients(params, train_cfg)
+                optimizer.step()
+            return loss.detach()
 
     return train_step
 

@@ -140,11 +140,6 @@ def test_edge_traversals_and_step_timer():
                                     horizon=6, batch=64, nnz=40000)):
         assert (ttele.edge_traversals_per_step(**kw)
                 == jtele.edge_traversals_per_step(**kw))
-    timer = ttele.StepTimer(ema=0.5)
-    timer.tick()
-    timer.tick()
-    s = timer.stats(edges_per_step=10)
-    assert s["steps"] == 2 and s["sec_per_step_ema"] >= 0
     assert ttele.peak_device_memory(torch.device("cpu")) is None
 
 
