@@ -1,8 +1,8 @@
 """Inference / serving path (counterpart of ``megacrn_tpu/serve.py``).
 
 * ``Predictor``: stateless batch inference around a MegaCRN, raw speed
-  windows in, raw-scale forecasts out. Requests are chunked and padded to a
-  fixed batch (``max_batch``).
+  windows in, raw-scale forecasts out. Requests are cut into chunks of at
+  most ``max_batch`` windows, and each chunk runs at its own size.
 * ``GTSPredictor``: the same around a trained GTS; its graph is sampled
   once, when it is built (argmax, no Gumbel noise, BatchNorm in eval mode).
 * ``MegaCRNxPredictor``: the same around a trained MegaCRNx.
@@ -13,7 +13,9 @@
 All three share ``_run_batched``, which records the serving spans of
 ``train.telemetry`` (``serve.predict`` a request, ``serve.chunk`` with its
 ``windows`` and ``padded`` counts, and in each chunk ``serve.upload``,
-``serve.forward`` and ``serve.copy_back``), and each loads an ``.npz``
+``serve.forward`` and ``serve.copy_back``; ``padded`` reads 0, as
+``_run_batched`` pads nothing, and only ``MegaCRNxPredictor``'s forward
+pads, for its batch-coupled support), and each loads an ``.npz
 checkpoint that either package wrote, or a checkpoint directory the port
 wrote (``ckpt_backend="orbax"``), with ``from_checkpoint``.
 """
@@ -48,8 +50,9 @@ class Predictor:
         loads into a ``MegaCRN`` with ``load_state_dict``).
       cfg: model config.
       scaler_mean / scaler_std: the training normalisation stats.
-      max_batch: the fixed batch; smaller requests are padded, larger ones
-        chunked.
+      max_batch: the most windows one forward takes (a cap on its
+        memory); larger requests are chunked, and a smaller request or last
+        chunk runs at its own size, unpadded.
       road_supports: the graph constant of a ``road_sparse`` or
         ``sparse_meta`` config (any the model takes); its forward side is
         moved to ``device`` and cast to the compute dtype here.
@@ -114,21 +117,17 @@ class Predictor:
 
 
 def _run_batched(fwd, max_batch: int, arrays) -> np.ndarray:
-    """Chunk/pad a request to the fixed batch size and call ``fwd`` on each
-    chunk; padding repeats the last row. ``arrays``: tuple of (B, ...) numpy
-    arrays."""
+    """Cut a request into chunks of at most ``max_batch`` windows and call
+    ``fwd`` on each at its own size: ``fwd`` gets the request's windows
+    and no copies of them (``serve.chunk``'s ``padded`` reads 0).
+    ``arrays``: tuple of (B, ...) numpy arrays."""
     b = arrays[0].shape[0]
     outs = []
     with span("serve.predict", windows=b):
         for s in range(0, b, max_batch):
             chunk = [a[s:s + max_batch] for a in arrays]
-            nb = len(chunk[0])
-            pad = max_batch - nb
-            with span("serve.chunk", windows=nb, padded=pad):
-                if pad:
-                    chunk = [np.concatenate([c, np.repeat(c[-1:], pad, 0)])
-                             for c in chunk]
-                outs.append(np.asarray(fwd(*chunk))[:nb])
+            with span("serve.chunk", windows=len(chunk[0]), padded=0):
+                outs.append(np.asarray(fwd(*chunk)))
         return np.concatenate(outs, axis=0)
 
 
@@ -224,7 +223,14 @@ class MegaCRNxPredictor:
     deterministic forward (no scheduled sampling), raw-scale output per its
     protocol (model_futurework/traintest_MegaCRNx.py: normalised x,
     raw-scale targets). ``params_or_model``: a ``MegaCRNx`` module or its
-    weights in the JAX package's flat naming."""
+    weights in the JAX package's flat naming.
+
+    Unlike the other two families, MegaCRNx couples the windows of a
+    forward: its decoder's support sums E E^T over every window in the
+    batch (``models.megacrnx.support_from_embeddings``). So a chunk of
+    fewer than ``max_batch`` windows is padded to ``max_batch`` here, by
+    repeating its last window, and the padding's forecasts are dropped:
+    each forecast is the JAX predictor's at the same ``max_batch``."""
 
     def __init__(self, params_or_model, cfg, scaler_mean: float = 0.0,
                  scaler_std: float = 1.0, max_batch: int = 64, device=None):
@@ -254,10 +260,14 @@ class MegaCRNxPredictor:
 
     @torch.inference_mode()
     def _forward(self, x: np.ndarray, y_cov: np.ndarray) -> np.ndarray:
+        nb, pad = len(x), self.max_batch - len(x)
+        if pad:
+            x, y_cov = (np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                        for a in (x, y_cov))
         x, y_cov = _upload(self.device, self.mean, self.std, x, y_cov)
         with span("serve.forward"):
             out = self.model(x[..., :self.cfg.input_dim], y_cov)
-        return _copy_back(out.output, self.std, self.mean)
+        return _copy_back(out.output[:nb], self.std, self.mean)
 
     def predict(self, x: np.ndarray,
                 y_cov: Optional[np.ndarray] = None) -> np.ndarray:

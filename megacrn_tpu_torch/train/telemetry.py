@@ -1,7 +1,7 @@
 """Observability: spans of the program's layers, throughput accounting,
 profiler hooks (counterpart of ``megacrn_tpu/train/telemetry.py``).
 
-Spans: ``with span("serve.chunk", windows=1, padded=63): ...`` records
+Spans: ``with span("serve.chunk", windows=1, padded=0): ...`` records
 the span's name, start and end, its parent (the innermost span open on
 the same thread), its request (a top-level span's own id, inherited by
 its descendants), its thread, the counts passed in, and whether a torch

@@ -213,6 +213,40 @@ def test_predictor_matches_jax_on_a_jax_checkpoint(fits_f32):
                                    atol=1e-4 * np.abs(want).max())
 
 
+def test_predictor_pads_a_short_chunk_like_jax(fits_f32):
+    """MegaCRNx's support sums over the windows of a forward, so a request
+    of one window, and a stream's push, run padded to ``max_batch`` as in
+    the JAX predictor, and forecast as it does."""
+    jrun, _, _, _, cfg = fits_f32
+    want_p = jserve.MegaCRNxPredictor.from_checkpoint(
+        jrun.checkpoint_path, jx.MegaCRNxConfig(**cfg.__dict__), max_batch=8)
+    got_p = tserve.MegaCRNxPredictor.from_checkpoint(
+        jrun.checkpoint_path, cfg, max_batch=8, device="cpu")
+    seen, forward = [], got_p.model.forward
+
+    def recorded(x, *args, **kwargs):
+        seen.append(x.shape[0])
+        return forward(x, *args, **kwargs)
+
+    got_p.model.forward = recorded
+    rs = np.random.RandomState(5)
+    x = rs.uniform(0, 70, (1, cfg.seq_len, cfg.num_nodes, 1)).astype(
+        np.float32)
+    got, want = got_p.predict(x), want_p.predict(x)
+    assert got.shape == (1, cfg.horizon, cfg.num_nodes, 1)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    gstream = tserve.StreamingForecaster(got_p)
+    jstream = jserve.StreamingForecaster(want_p)
+    for _ in range(cfg.seq_len + 1):
+        obs = rs.uniform(0, 70, cfg.num_nodes).astype(np.float32)
+        got, want = gstream.push(obs), jstream.push(obs)
+        if want is not None:
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max())
+    assert seen == [8, 8, 8]
+
+
 def test_cli_writes_every_artifact_and_refuses_the_mesh(tmp_path):
     res = tcli.main(BASE + ["--epoch", "1", "--device", "cpu", "--loss",
                             "MAE", "--decoder", "sequence", "--meta",

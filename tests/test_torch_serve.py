@@ -78,7 +78,8 @@ def test_predictor_matches_jax(tmp_path, backend):
 
 def test_predictor_chunks_and_pads_like_jax(tmp_path):
     jpred, tpred = _pair(tmp_path, "road_sparse")
-    x, _ = _requests(7, seed=1)  # 7 = 4 + 3 padded by repeating the last
+    x, _ = _requests(7, seed=1)  # 7 = 4 + 3: JAX pads the 3 to 4, the
+    # port runs them as 3
     got = tpred.predict(x)
     np.testing.assert_allclose(got, jpred.predict(x), rtol=1e-4,
                                atol=1e-4 * STD)
@@ -110,6 +111,8 @@ def test_predictor_casts_only_the_forward_pack_once(dtype):
 
 
 def test_run_batched_pads_by_repeating_the_last_row():
+    """The last chunk reaches ``fwd`` as its own rows: no copy of the last
+    row is added to it."""
     seen = []
 
     def fwd(a):
@@ -119,7 +122,42 @@ def test_run_batched_pads_by_repeating_the_last_row():
     x = np.arange(5, dtype=np.float32)[:, None]
     out = tserve._run_batched(fwd, 4, (x,))
     np.testing.assert_array_equal(out, x * 2)
-    np.testing.assert_array_equal(seen[1][:, 0], [4, 4, 4, 4])
+    np.testing.assert_array_equal(seen[1][:, 0], [4])
+
+
+def _record_batches(pred):
+    """Wrap ``pred.model.forward`` to record the batch dimension of each
+    call."""
+    seen, forward = [], pred.model.forward
+
+    def recorded(x, *args, **kwargs):
+        seen.append(x.shape[0])
+        return forward(x, *args, **kwargs)
+
+    pred.model.forward = recorded
+    return seen
+
+
+def test_forward_sees_each_chunk_at_its_own_size(tmp_path):
+    jpred, tpred = _pair(tmp_path, "road_sparse")
+    seen = _record_batches(tpred)
+    x, yc = _requests(7, seed=3)
+    got = tpred.predict(x, yc)
+    assert seen == [4, 3]
+    np.testing.assert_allclose(got, jpred.predict(x, yc), rtol=1e-4,
+                               atol=1e-4 * STD)
+
+    seen.clear()
+    tstream = tserve.StreamingForecaster(tpred)
+    jstream = jserve.StreamingForecaster(jpred)
+    rs = np.random.RandomState(4)
+    for t in range(5):  # seq_len 4: 3 warming pushes, then 2 forecasts
+        obs = rs.rand(N).astype(np.float32) * 70
+        got, want = tstream.push(obs), jstream.push(obs)
+        if want is not None:
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * STD)
+    assert seen == [1, 1]
 
 
 def test_streaming_forecaster_warms_up_then_forecasts(tmp_path):

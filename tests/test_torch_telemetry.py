@@ -148,8 +148,8 @@ def _predictor(max_batch):
 
 
 @pytest.mark.parametrize("windows, chunks", [
-    (1, [(1, 3)]),
-    (9, [(4, 0), (4, 0), (1, 3)]),
+    (1, [(1, 0)]),
+    (9, [(4, 0), (4, 0), (1, 0)]),
 ])
 def test_serving_chunks_count_windows_and_padding(windows, chunks):
     pred = _predictor(max_batch=4)
@@ -168,9 +168,12 @@ def test_serving_chunks_count_windows_and_padding(windows, chunks):
         assert len(by[name]) == len(chunks)
         assert {s.parent for s in by[name]} == {
             c.id for c in by["serve.chunk"]}
-    # x and y_cov of a chunk of 4 go up; its forecasts come back.
-    assert by["serve.upload"][0].counts["bytes"] == 4 * (4 + 3) * N * 4
-    assert by["serve.copy_back"][0].counts["bytes"] == 4 * 3 * N * 4
+    # x and y_cov of each chunk's own windows go up; its forecasts come
+    # back.
+    for (nb, _), up, back in zip(chunks, by["serve.upload"],
+                                 by["serve.copy_back"]):
+        assert up.counts["bytes"] == nb * (4 + 3) * N * 4
+        assert back.counts["bytes"] == nb * 3 * N * 4
 
 
 def test_streaming_push_is_spanned_once_the_window_is_warm():
@@ -183,7 +186,7 @@ def test_streaming_push_is_spanned_once_the_window_is_warm():
     assert len(pushes) == 3 and all(p.parent is None for p in pushes)
     assert [p.id for p in pushes] == [s.parent for s in by["serve.predict"]]
     assert [c.counts for c in by["serve.chunk"]] == [
-        {"windows": 1, "padded": 3}] * 3
+        {"windows": 1, "padded": 0}] * 3
     for p in pushes:
         family = [s for s in tele.spans() if s.request == p.id]
         assert {s.name for s in family} == {
