@@ -16,7 +16,10 @@ meta-graph on a static edge pattern (``NodeELLPattern``,
 ``BucketedNodeELLPattern`` or the 128x128-tile ``BlockPattern``). The
 forward serves and trains: with ``training=True`` the decoder does scheduled
 sampling, and ``cfg.remat`` recomputes each cell step in the backward. The
-encoder and decoder loop over time in Python.
+encoder and decoder loop over time in Python. The ``dense`` backend records
+a ``graph.meta`` span (``train.telemetry``) around each forward's meta-graph
+and a ``graph.aggregate`` span around each aggregation, with the shapes of
+its products as counts.
 
 Inside a node-partitioned step of ``parallel.api`` the forward gets the
 mesh's ``node_group`` (the counterpart of the JAX ``ring_axis`` and
@@ -64,6 +67,7 @@ from megacrn_tpu_torch.ops.graph import (cheb_aggregate,
                                          cheb_aggregate_sparse,
                                          cheb_aggregate_sparse_stacked,
                                          cheb_support_stack, meta_graph)
+from megacrn_tpu_torch.train.telemetry import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
@@ -272,18 +276,29 @@ class MegaCRN(nn.Module):
         if backend in ("dense", "dense_ring"):
             if cfg.dense_impl not in ("recursive", "stacked"):
                 raise ValueError(f"unknown dense_impl {cfg.dense_impl!r}")
-            supports = meta_graph(mem["Memory"], mem["We1"],
-                                  mem["We2"]).to(compute_dtype)
-            if cfg.dense_impl == "recursive":
-                return supports, cheb_aggregate
-            # The polynomial stack once per forward, after the cast, so its
-            # N^3 products run in compute_dtype; every aggregation is then
-            # one tall product.
-            poly = cheb_support_stack(supports, cfg.cheb_k)
+            with span("graph.meta", nodes=cfg.num_nodes,
+                      supports=cfg.num_supports, dim=cfg.mem_dim):
+                supports = meta_graph(mem["Memory"], mem["We1"],
+                                      mem["We2"]).to(compute_dtype)
             num_s = supports.shape[0]
+            if cfg.dense_impl == "recursive":
+                agg = cheb_aggregate
+            else:
+                # The polynomial stack once per forward, after the cast, so
+                # its N^3 products run in compute_dtype; every aggregation
+                # is then one tall product.
+                poly = cheb_support_stack(supports, cfg.cheb_k)
 
-            def aggregate(_supports, x, cheb_k):
-                return cheb_aggregate_prestacked(poly, num_s, x, cheb_k)
+                def agg(_supports, x, cheb_k):
+                    return cheb_aggregate_prestacked(poly, num_s, x, cheb_k)
+
+            def aggregate(supports_, x, cheb_k):
+                # The products' shapes, from which their operations and
+                # bytes follow.
+                with span("graph.aggregate", nodes=x.shape[1],
+                          width=x.shape[0] * x.shape[2], supports=num_s,
+                          order=cheb_k):
+                    return agg(supports_, x, cheb_k)
 
             return supports, aggregate
         if backend == "road_sparse":

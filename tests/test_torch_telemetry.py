@@ -189,9 +189,11 @@ def test_streaming_push_is_spanned_once_the_window_is_warm():
         {"windows": 1, "padded": 0}] * 3
     for p in pushes:
         family = [s for s in tele.spans() if s.request == p.id]
+        # The dense model's forward adds its meta-graph and aggregations.
         assert {s.name for s in family} == {
             "serve.push", "serve.predict", "serve.chunk", "serve.upload",
-            "serve.forward", "serve.copy_back"}
+            "serve.forward", "serve.copy_back", "graph.meta",
+            "graph.aggregate"}
 
 
 def test_fit_records_the_step_its_children_the_loader_and_the_upload(
