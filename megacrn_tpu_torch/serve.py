@@ -18,10 +18,13 @@ All three share ``_run_batched``, which records the serving spans of
 pads, for its batch-coupled support), and each loads an ``.npz
 checkpoint that either package wrote, or a checkpoint directory the port
 wrote (``ckpt_backend="orbax"``), with ``from_checkpoint``.
+``serve.forward`` counts ``graphed``: 1 where ``Predictor`` replayed a
+CUDA graph, 0 for an eager forward; ``serve.capture`` (``windows``)
+records the capture of a graph.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,12 +35,25 @@ from megacrn_tpu_torch.config import MegaCRNConfig
 from megacrn_tpu_torch.interop import (gts_params_from_flat,
                                        megacrnx_params_from_flat,
                                        params_from_flat)
+from megacrn_tpu_torch.kernels.spmm_coo import StackedRoadPack, spmm_coo
 from megacrn_tpu_torch.models.gts import GTS
 from megacrn_tpu_torch.models.megacrn import (DTYPES, MegaCRN,
                                               road_supports_to)
 from megacrn_tpu_torch.models.megacrnx import MegaCRNx
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.train.telemetry import span
+
+
+class _Graph(NamedTuple):
+    """One chunk size's captured forward: its static inputs (normalised x,
+    sliced to ``input_dim``, and y_cov), its static forecasts (normalised),
+    and the kernel launches it replays."""
+
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    y_cov: torch.Tensor
+    output: torch.Tensor
+    launches: int
 
 
 class Predictor:
@@ -58,6 +74,21 @@ class Predictor:
         moved to ``device`` and cast to the compute dtype here.
       device: where the model runs; the card unless the caller says
         otherwise (``resolve_device``).
+
+    On a CUDA device, a ``road_sparse`` model on a ``StackedRoadPack``
+    through the kernel runs each chunk size's forward as a CUDA graph: the
+    first chunk of a size runs eagerly, which builds the kernel and warms
+    cuBLAS and the allocator, and its forecasts are returned; then that
+    forward is captured from static input buffers, and every later chunk
+    of the size is copied into them and replayed. The graphs share one
+    memory pool, since one predictor replays them one after another on
+    one stream, and each copy back blocks before the next replay. The
+    weights and the graph constant are read where they lie when captured:
+    change them in place, never by assigning new tensors. Every other
+    backend stays eager: ``dense``, whose forward records the
+    ``graph.meta`` and ``graph.aggregate`` spans that a replay would not,
+    block-ELL pairs, node-ELL packs, ``sparse_meta``, and the pack's
+    ``reference`` impl, whose ``index_add_`` sums in no fixed order.
     """
 
     def __init__(self, params_or_model, cfg: MegaCRNConfig,
@@ -79,6 +110,13 @@ class Predictor:
                               else road_supports_to(
                                   road_supports, self.device,
                                   DTYPES[cfg.compute_dtype]))
+        graphed = (self.device.type == "cuda"
+                   and cfg.graph_backend == "road_sparse"
+                   and isinstance(self.road_supports, StackedRoadPack)
+                   and self.road_supports.impl == "kernel")
+        # {windows: _Graph} of the sizes captured; None: forwards stay eager.
+        self._graphs = {} if graphed else None
+        self._pool = torch.cuda.graph_pool_handle() if graphed else None
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: MegaCRNConfig,
@@ -97,10 +135,35 @@ class Predictor:
     @torch.inference_mode()
     def _forward(self, x: np.ndarray, y_cov: np.ndarray) -> np.ndarray:
         x, y_cov = _upload(self.device, self.mean, self.std, x, y_cov)
-        with span("serve.forward"):
-            out = self.model(x[..., :self.cfg.input_dim], y_cov,
-                             road_supports=self.road_supports)
-        return _copy_back(out.output, self.std, self.mean)
+        x = x[..., :self.cfg.input_dim]
+        g = None if self._graphs is None else self._graphs.get(len(x))
+        if g is None:
+            with span("serve.forward", graphed=0):
+                out = self.model(x, y_cov, road_supports=self.road_supports)
+            forecasts = _copy_back(out.output, self.std, self.mean)
+            if self._graphs is not None:
+                self._capture(x, y_cov)
+            return forecasts
+        g.x.copy_(x)
+        g.y_cov.copy_(y_cov)
+        with span("serve.forward", graphed=1):
+            g.graph.replay()
+        spmm_coo.launches += g.launches
+        return _copy_back(g.output, self.std, self.mean)
+
+    def _capture(self, x: torch.Tensor, y_cov: torch.Tensor) -> None:
+        """Capture the forward at x's size from static copies of x and
+        y_cov. The capture launches nothing on the card, so the kernel's
+        launch counter is set back, and each replay adds what it counted."""
+        with span("serve.capture", windows=len(x)):
+            x, y_cov = x.clone(), y_cov.clone()
+            graph = torch.cuda.CUDAGraph()
+            before = spmm_coo.launches
+            with torch.cuda.graph(graph, pool=self._pool):
+                out = self.model(x, y_cov, road_supports=self.road_supports)
+            launches, spmm_coo.launches = spmm_coo.launches - before, before
+            self._graphs[len(x)] = _Graph(graph, x, y_cov, out.output,
+                                          launches)
 
     def predict(self, x: np.ndarray,
                 y_cov: Optional[np.ndarray] = None) -> np.ndarray:

@@ -32,7 +32,9 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 ENABLED = True
-RING = 65_536
+# Room for 20 s of one-window pushes at about 0.5 ms each, six spans a
+# push, so a benchmark window's spans are all kept (about 440 bytes each).
+RING = 262_144
 
 _ring: collections.deque = collections.deque(maxlen=RING)
 _ids = itertools.count(1)

@@ -1,6 +1,7 @@
 """The port's serving path (megacrn_tpu_torch/serve.py) held against the
 JAX package's (megacrn_tpu/serve.py) on the same weights and requests."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -268,3 +269,49 @@ def test_predictor_without_device_needs_a_card():
         tserve.Predictor(model, tcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MegaCRN(tcfg)
+
+
+GOLDEN_FIELDS = ("num_nodes", "input_dim", "output_dim", "horizon",
+                 "seq_len", "rnn_units", "num_layers", "cheb_k", "ycov_dim",
+                 "mem_num", "mem_dim")
+
+
+def _golden_predictor():
+    """A dense Predictor on the reference golden's weights (mean 0, std 1,
+    so the forecasts are the golden's outputs), its request and its
+    forecasts."""
+    blob = dict(np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                                     "megacrn_small.npz")))
+    cfg = MegaCRNConfig(**{k: int(v) for k, v in zip(GOLDEN_FIELDS,
+                                                     blob["meta/config"])})
+    pred = tserve.Predictor(blob, cfg, 0.0, 1.0, max_batch=2, device="cpu")
+    return pred, (blob["in/x"], blob["in/y_cov"]), blob["out/output"]
+
+
+@pytest.mark.parametrize("backend", ["dense", "road_sparse"])
+def test_cpu_predictor_captures_no_graph(tmp_path, backend):
+    """On the CPU every chunk runs the eager forward: no graph is kept,
+    no ``serve.capture`` is recorded and every ``serve.forward`` counts
+    ``graphed=0``; the forecasts hold against the reference golden (dense)
+    or the JAX predictor (road_sparse)."""
+    from megacrn_tpu_torch.train import telemetry as tele
+
+    if backend == "dense":
+        tpred, request, want = _golden_predictor()
+        tol = dict(atol=5e-5, rtol=1e-4)
+    else:
+        jpred, tpred = _pair(tmp_path, backend)
+        request = _requests(7, seed=5)
+        want = jpred.predict(*request)
+        tol = dict(rtol=1e-4, atol=1e-4 * STD)
+    tele.clear()
+    first, again = tpred.predict(*request), tpred.predict(*request)
+    recorded = tele.spans()
+    tele.clear()
+    assert tpred._graphs is None
+    assert not [s for s in recorded if s.name == "serve.capture"]
+    forwards = [s for s in recorded if s.name == "serve.forward"]
+    assert len(forwards) == 4 and all(s.counts == {"graphed": 0}
+                                      for s in forwards)
+    np.testing.assert_array_equal(again, first)
+    np.testing.assert_allclose(first, want, **tol)
