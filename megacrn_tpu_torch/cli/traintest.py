@@ -292,12 +292,13 @@ def _predict_fn(model, road_supports):
     device) of the eval-mode forward, for ``train.eval_modes``."""
     import torch
 
-    from megacrn_tpu_torch.models.megacrn import DTYPES, road_supports_to
+    from megacrn_tpu_torch.models.megacrn import DTYPES
+    from megacrn_tpu_torch.ops.graph import road_supports_to
     from megacrn_tpu_torch.train.loop import to_device
 
     device = next(model.parameters()).device
-    sup = (None if road_supports is None else road_supports_to(
-        road_supports, device, DTYPES[model.cfg.compute_dtype]))
+    sup = road_supports_to(road_supports, device,
+                           DTYPES[model.cfg.compute_dtype])
 
     @torch.no_grad()
     def predict(x0, y_cov):

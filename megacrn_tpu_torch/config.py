@@ -2,9 +2,9 @@
 ``megacrn_tpu/config.py``).
 
 The port keeps its own copy: it imports nothing of the JAX package. The
-mesh config comes with the slice that uses it (``cli/traintest.py``
-refuses its flags). MegaCRNx's config lives with its model
-(``models/megacrnx.py``), as in the JAX package.
+mesh is no config field: ``cli/traintest.py``'s ``--mesh_data`` and
+``--mesh_node`` build the ``parallel.mesh.Mesh`` that ``fit`` takes.
+MegaCRNx's config lives with its model (``models/megacrnx.py``), as in JAX.
 """
 from __future__ import annotations
 
@@ -37,11 +37,11 @@ class MegaCRNConfig:
     # control). The memory read and the output stay at >= float32.
     compute_dtype: str = "float32"
     # Graph aggregation backend: "dense" (learned meta-graph), "road_sparse"
-    # (static road supports: a StackedRoadPack through the block-COO kernel,
-    # block-ELL pairs through the block-ELL kernel, or a node-ELL pack) or
-    # "sparse_meta" (the learned meta-graph on a static edge pattern, node
-    # or tile granular). "dense_ring" raises NotImplementedError until the
-    # mesh slice lands.
+    # (static road supports) or "sparse_meta" (the learned meta-graph on a
+    # static edge pattern); ops.graph.GRAPH_CONSTANTS lists the graph
+    # constants of the last two. "dense_ring" aggregates the meta-graph on
+    # the ring (parallel.ring) in a node-partitioned mesh step, and is
+    # "dense" outside one.
     graph_backend: str = "dense"
     # Dense aggregation: "recursive" (the per-support feature recursion) or
     # "stacked" (the Chebyshev polynomial matrices built once per forward,

@@ -19,11 +19,11 @@ are copies of the JAX ones; the index arrays become int64 tensors once,
 here, and never per call.
 
 The node-partitioned half (``shard_node_ell``, ``local_node_ell``,
-``cheb_aggregate_node_ell_sharded``) gives each rank of the mesh's node
-axis the ELL rows of its node block, with GLOBAL column ids: the x node
-blocks are all-gathered over the axis and the gather-reduce runs on the
-local rows only; autograd's index backward and the gather's reduce-scatter
-carry dx back.
+``apply_local_node_ell``) gives each rank of the mesh's node axis the ELL
+rows of its node block, with GLOBAL column ids: the x node blocks are
+all-gathered over the axis (``parallel.ring``) and the gather-reduce runs
+on the local rows only; autograd's index backward and the gather's
+reduce-scatter carry dx back.
 """
 from __future__ import annotations
 
@@ -566,26 +566,11 @@ def _apply_batched(nbr, w, t_full):
     return torch.einsum("rd,brdc->brc", w.to(t_full.dtype), t_full[:, nbr])
 
 
-def cheb_aggregate_node_ell_sharded(pack, x: torch.Tensor, cheb_k: int,
-                                    group) -> torch.Tensor:
-    """Node-partitioned Chebyshev stack: all-gather the x node blocks over
-    ``group`` (the mesh's node group), gather-reduce on the local rows
-    (``parallel.ring.cheb_stack_gathered``). Output (B, n_loc, S*K, C),
-    node-local. ``pack``: ``LocalNodeELL`` or ``LocalBucketedNodeELL``
-    (per-bucket gather-reduce, concatenated, one un-permute)."""
-    from megacrn_tpu_torch.parallel.ring import cheb_stack_gathered
-
+def apply_local_node_ell(pack, s: int, t_full):
+    """Support ``s`` of one rank's rows (``LocalNodeELL``, or
+    ``LocalBucketedNodeELL``: per-bucket gather-reduce, concatenated, one
+    un-permute) on the all-gathered x: (B, N, C) -> (B, n_loc, C)."""
     if isinstance(pack, LocalBucketedNodeELL):
-        num_supports = len(pack.nbr)
-
-        def apply_local(s, t_full):  # (B, N, C) -> (B, n_loc, C)
-            parts = [_apply_batched(nbr_b, w_b, t_full)
-                     for nbr_b, w_b in zip(pack.nbr[s], pack.w[s])]
-            return torch.cat(parts, 1)[:, pack.inv[s]]
-    else:
-        num_supports = pack.nbr.shape[0]
-
-        def apply_local(s, t_full):
-            return _apply_batched(pack.nbr[s], pack.w[s], t_full)
-
-    return cheb_stack_gathered(num_supports, apply_local, x, cheb_k, group)
+        return torch.cat([_apply_batched(nbr_b, w_b, t_full) for nbr_b, w_b
+                          in zip(pack.nbr[s], pack.w[s])], 1)[:, pack.inv[s]]
+    return _apply_batched(pack.nbr[s], pack.w[s], t_full)

@@ -8,12 +8,11 @@ reference ``.pt`` state_dict loads with ``load_state_dict`` as it is;
 
 The port runs every single-device graph backend of the JAX model:
 ``dense`` (learned meta-graph, dense Chebyshev stack, ``dense_impl``
-``recursive`` or ``stacked``); ``road_sparse``, whose road-graph constant is
-a ``StackedRoadPack`` (block-COO SpMM kernel), a list of per-support
-``(BlockELL, BlockELL_t)`` pairs (block-ELL SpMM kernel) or a stacked
-node-ELL pack (flat or degree-bucketed); and ``sparse_meta``, the learned
-meta-graph on a static edge pattern (``NodeELLPattern``,
-``BucketedNodeELLPattern`` or the 128x128-tile ``BlockPattern``). The
+``recursive`` or ``stacked``); ``road_sparse`` on a static road graph and
+``sparse_meta``, the learned meta-graph on a static edge pattern, whose
+graph constants (``road_supports=``) and aggregations ``ops.graph``'s
+table ``GRAPH_CONSTANTS`` lists: the model checks that a constant serves
+``cfg.graph_backend`` and takes the table's ``(supports, aggregate)``. The
 forward serves and trains: with ``training=True`` the decoder does scheduled
 sampling, and ``cfg.remat`` recomputes each cell step in the backward. The
 encoder and decoder loop over time in Python. The ``dense`` backend records
@@ -27,17 +26,13 @@ mesh's ``node_group`` (the counterpart of the JAX ``ring_axis`` and
 ranks. ``dense_ring`` builds the rank's rows of the meta-graph supports and
 aggregates on the ring (``parallel.ring``), ``dense`` under a node axis > 1
 the same rows with the x blocks all-gathered (the all-gather GSPMD inserts
-in JAX); a list of local block-ELL pairs goes through
-``cheb_aggregate_sparse_sharded``, a ``LocalNodeELL`` /
-``LocalBucketedNodeELL`` through ``cheb_aggregate_node_ell_sharded``, and
-``sparse_meta``'s ``LocalNodePattern`` / ``LocalBlockPattern`` (the rank's
-rows of the edge pattern) through the learned sharded aggregations of
-``parallel.ring``: each rank computes its rows of the SDDMM and softmax
-from the whole node embeddings and multiplies them into the gathered x.
+in JAX); a rank's rows of a road constant or of a ``sparse_meta`` pattern
+take the table's node-partitioned aggregations (``parallel.ring``).
 Outside a mesh ``dense_ring`` is the ``dense`` path, as in JAX.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -47,26 +42,18 @@ from torch.utils.checkpoint import checkpoint
 
 from megacrn_tpu_torch import resolve_device
 from megacrn_tpu_torch.config import MegaCRNConfig
-from megacrn_tpu_torch.kernels.sparse_graph import (
-    BlockPattern, LocalBlockPattern, cheb_aggregate_learned_sparse,
-    sparse_meta_graph)
-from megacrn_tpu_torch.kernels.sparse_graph_node import (
-    BucketedNodeELLPattern, LocalNodePattern, NodeELLPattern,
-    cheb_aggregate_learned_node, sparse_meta_graph_node)
-from megacrn_tpu_torch.kernels.spmm import BlockELL
-from megacrn_tpu_torch.kernels.spmm_coo import StackedRoadPack
-from megacrn_tpu_torch.kernels.spmm_ell_node import (
-    BucketedStackedNodeELL, LocalBucketedNodeELL, LocalNodeELL,
-    StackedNodeELL, cheb_aggregate_node_ell, cheb_aggregate_node_ell_sharded)
 from megacrn_tpu_torch.nn.init import torch_linear
 from megacrn_tpu_torch.nn.memory import memory_init, query_memory
 from megacrn_tpu_torch.nn.seq import (decoder_init, encoder_init, init_hidden,
                                       stack_step)
-from megacrn_tpu_torch.ops.graph import (cheb_aggregate,
-                                         cheb_aggregate_prestacked,
-                                         cheb_aggregate_sparse,
-                                         cheb_aggregate_sparse_stacked,
-                                         cheb_support_stack, meta_graph)
+# road_supports_to is the mover of ops.graph's table, named here for the
+# predictor, the train steps and the CLI.
+from megacrn_tpu_torch.ops.graph import (  # noqa: F401
+    cheb_aggregate, cheb_aggregate_prestacked, cheb_support_stack,
+    graph_constant, meta_graph, road_supports_to)
+from megacrn_tpu_torch.parallel.ring import (cheb_aggregate_gathered,
+                                             cheb_aggregate_ring,
+                                             local_meta_supports)
 from megacrn_tpu_torch.train.telemetry import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -87,31 +74,6 @@ def sampling_mask(threshold: float, horizon: int,
     the same mask."""
     coins = torch.rand(horizon, generator=generator, device=generator.device)
     return coins < threshold
-
-
-# The graph constants with their own ``.to(device, dtype, transpose=...)``.
-_PACKS = (StackedRoadPack, StackedNodeELL, BucketedStackedNodeELL)
-_NODE_PATTERNS = (NodeELLPattern, BucketedNodeELLPattern)
-_LOCAL_NODE_ELL = (LocalNodeELL, LocalBucketedNodeELL)
-_LOCAL_PATTERNS = (LocalNodePattern, LocalBlockPattern)
-_MOVABLE = (_PACKS + _NODE_PATTERNS + _LOCAL_NODE_ELL + _LOCAL_PATTERNS
-            + (BlockPattern,))
-
-
-def road_supports_to(road_supports, device=None, dtype=None,
-                     transpose: bool = False):
-    """Move and cast a graph constant: a ``StackedRoadPack``, a list of
-    ``(BlockELL, BlockELL_t)`` pairs, a stacked node-ELL pack (flat or
-    bucketed), a rank's local node-ELL rows or a ``sparse_meta`` pattern
-    (node, bucketed or block; whole or a rank's rows). Index arrays move
-    and are never cast; tile data, weights and masks are cast to
-    ``dtype``. The transposed packs (and a node pattern's transposed
-    side) are read only by the backward, so they move only when
-    ``transpose`` is set."""
-    if isinstance(road_supports, _MOVABLE):
-        return road_supports.to(device, dtype, transpose=transpose)
-    return [(a.to(device, dtype), a_t.to(device, dtype) if transpose else a_t)
-            for a, a_t in road_supports]
 
 
 class MegaCRNOutput(NamedTuple):
@@ -259,20 +221,12 @@ class MegaCRN(nn.Module):
         if node_group is not None and (
                 backend == "dense_ring"
                 or (backend == "dense" and node_group.size > 1)):
-            from megacrn_tpu_torch.parallel.ring import (
-                cheb_aggregate_gathered, cheb_aggregate_ring,
-                local_meta_supports)
-
             supports = local_meta_supports(
                 mem["Memory"], mem["We1"], mem["We2"], node_group,
                 n_nodes).to(compute_dtype)
-            agg = (cheb_aggregate_ring if backend == "dense_ring"
-                   else cheb_aggregate_gathered)
-
-            def aggregate(supports_, x, cheb_k):
-                return agg(supports_, x, cheb_k, node_group)
-
-            return supports, aggregate
+            return supports, functools.partial(
+                cheb_aggregate_ring if backend == "dense_ring"
+                else cheb_aggregate_gathered, group=node_group)
         if backend in ("dense", "dense_ring"):
             if cfg.dense_impl not in ("recursive", "stacked"):
                 raise ValueError(f"unknown dense_impl {cfg.dense_impl!r}")
@@ -301,104 +255,15 @@ class MegaCRN(nn.Module):
                     return agg(supports_, x, cheb_k)
 
             return supports, aggregate
-        if backend == "road_sparse":
-            if road_supports is None:
-                raise ValueError("graph_backend='road_sparse' requires "
-                                 "road_supports=StackedRoadPack, "
-                                 "[(BlockELL, BlockELL_t), ...] or a "
-                                 "stacked node-ELL pack")
-            if isinstance(road_supports, _LOCAL_NODE_ELL):
-                if node_group is None:
-                    raise ValueError(
-                        f"{type(road_supports).__name__} is one rank's rows: "
-                        "it needs the node_group of a node-partitioned step")
-
-                def aggregate(pack, x, cheb_k):
-                    return cheb_aggregate_node_ell_sharded(pack, x, cheb_k,
-                                                           node_group)
-            elif isinstance(road_supports, _PACKS):
-                if road_supports.num_supports != cfg.num_supports:
-                    raise ValueError(f"{type(road_supports).__name__}"
-                                     ".num_supports != cfg.num_supports")
-                aggregate = (cheb_aggregate_sparse_stacked
-                             if isinstance(road_supports, StackedRoadPack)
-                             else cheb_aggregate_node_ell)
-            elif isinstance(road_supports, (list, tuple)) and all(
-                    isinstance(pair, (list, tuple)) and len(pair) == 2
-                    and all(isinstance(a, BlockELL) for a in pair)
-                    for pair in road_supports):
-                if len(road_supports) != cfg.num_supports:
-                    raise ValueError("len(road_supports) != "
-                                     "cfg.num_supports")
-                if node_group is None:
-                    aggregate = cheb_aggregate_sparse
-                else:
-                    # One rank's row-block packs (kernels.spmm.local_packs).
-                    from megacrn_tpu_torch.parallel.ring import \
-                        cheb_aggregate_sparse_sharded
-
-                    def aggregate(packs, x, cheb_k):
-                        return cheb_aggregate_sparse_sharded(
-                            packs, x, cheb_k, node_group)
-            else:
-                raise TypeError(
-                    f"{type(road_supports).__name__} is not a road_sparse "
-                    "graph constant: give a StackedRoadPack, [(BlockELL, "
-                    "BlockELL_t), ...], a StackedNodeELL or a "
-                    "BucketedStackedNodeELL")
-            # Only the values narrow (a no-op once the caller has cast
-            # them). The transposed packs are cast only when autograd
-            # records, since only a backward reads them.
-            return (road_supports_to(road_supports, dtype=compute_dtype,
-                                     transpose=torch.is_grad_enabled()),
-                    aggregate)
-        if backend == "sparse_meta":
-            local = isinstance(road_supports, _LOCAL_PATTERNS)
-            if not isinstance(road_supports, _NODE_PATTERNS + (BlockPattern,)
-                              + _LOCAL_PATTERNS):
-                raise TypeError(
-                    "graph_backend='sparse_meta' requires road_supports="
-                    "NodeELLPattern, BucketedNodeELLPattern or BlockPattern,"
-                    f" got {type(road_supports).__name__}")
-            if local != (node_group is not None and node_group.size > 1):
-                raise ValueError(
-                    "a node-partitioned step takes the rank's rows of the "
-                    "pattern (LocalNodePattern or LocalBlockPattern: "
-                    "parallel.api cuts them), and only it does")
-            if local and road_supports.n_loc != n_nodes:
-                raise ValueError(f"the pattern holds {road_supports.n_loc} "
-                                 f"rows, x holds {n_nodes} nodes")
-            pattern = road_supports_to(road_supports, dtype=compute_dtype,
-                                       transpose=torch.is_grad_enabled())
-            # The learned weights at the parameters' dtype, then cast.
-            if isinstance(pattern, _NODE_PATTERNS + (LocalNodePattern,)):
-                weights = sparse_meta_graph_node(mem["Memory"], mem["We1"],
-                                                 mem["We2"], pattern)
-                if isinstance(getattr(pattern, "pattern", pattern),
-                              BucketedNodeELLPattern):
-                    weights = tuple(tuple(w_b.to(compute_dtype) for w_b in w)
-                                    for w in weights)
-                else:
-                    weights = tuple(w.to(compute_dtype) for w in weights)
-                agg = cheb_aggregate_learned_node
-            else:
-                weights = tuple(t.to(compute_dtype) for t in sparse_meta_graph(
-                    mem["Memory"], mem["We1"], mem["We2"], pattern))
-                agg = cheb_aggregate_learned_sparse
-            if local:
-                from megacrn_tpu_torch.parallel.ring import (
-                    cheb_aggregate_learned_node_sharded,
-                    cheb_aggregate_learned_sparse_sharded)
-
-                sharded = (cheb_aggregate_learned_node_sharded
-                           if agg is cheb_aggregate_learned_node
-                           else cheb_aggregate_learned_sparse_sharded)
-
-                def aggregate(weights_, x, cheb_k):
-                    return sharded(weights_, pattern, x, cheb_k, node_group)
-            else:
-                def aggregate(weights_, x, cheb_k):
-                    return agg(weights_, pattern, x, cheb_k)
-
-            return weights, aggregate
-        raise ValueError(f"unknown graph_backend {backend!r}")
+        if backend not in ("road_sparse", "sparse_meta"):
+            raise ValueError(f"unknown graph_backend {backend!r}")
+        if backend == "road_sparse" and road_supports is None:
+            raise ValueError("graph_backend='road_sparse' requires "
+                             "road_supports= (ops.graph.GRAPH_CONSTANTS)")
+        kind = graph_constant(road_supports)
+        if kind is None or kind.backend != backend or kind.graph is None:
+            raise TypeError(f"{type(road_supports).__name__} is not a "
+                            f"{backend} graph constant that the forward "
+                            "takes (ops.graph.GRAPH_CONSTANTS)")
+        return kind.graph(road_supports, mem, compute_dtype, node_group,
+                          n_nodes, cfg.num_supports)

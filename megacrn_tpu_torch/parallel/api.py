@@ -46,16 +46,9 @@ from typing import Callable
 
 import torch
 
-from megacrn_tpu_torch.kernels.sparse_graph import (BlockPattern,
-                                                    local_block_pattern)
-from megacrn_tpu_torch.kernels.sparse_graph_node import (
-    BucketedNodeELLPattern, NodeELLPattern, local_node_pattern)
-from megacrn_tpu_torch.kernels.spmm import ShardedRoadPacks, local_packs
-from megacrn_tpu_torch.kernels.spmm_ell_node import (BucketedShardedNodeELL,
-                                                     ShardedNodeELL,
-                                                     local_node_ell)
 from megacrn_tpu_torch.models.megacrn import MegaCRNOutput
 from megacrn_tpu_torch.ops import losses
+from megacrn_tpu_torch.ops.graph import rank_rows
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.parallel.comm import Group, all_gather, psum
 from megacrn_tpu_torch.parallel.mesh import Mesh
@@ -148,21 +141,6 @@ def make_shardmap_train_step(model, train_cfg, optimizer, mesh: Mesh,
                          mesh.data_group, None, shard_nodes=False)
 
 
-def _node_rows(model, road_supports, mesh: Mesh):
-    """The graph constant of the GSPMD-style steps under a node axis > 1:
-    the rank's rows of a ``sparse_meta`` pattern (what the JAX package's
-    ``"tiles"`` and ``"node_weights"`` sharding constraints row-shard)."""
-    if model.cfg.graph_backend != "sparse_meta":
-        return road_supports
-    if isinstance(road_supports, BlockPattern):
-        return local_block_pattern(road_supports, mesh.node_index, mesh.node)
-    if isinstance(road_supports, (NodeELLPattern, BucketedNodeELLPattern)):
-        return local_node_pattern(road_supports, mesh.node_index, mesh.node)
-    raise TypeError("graph_backend='sparse_meta' requires road_supports="
-                    "NodeELLPattern, BucketedNodeELLPattern or BlockPattern, "
-                    f"got {type(road_supports).__name__}")
-
-
 def make_sharded_train_step(model, train_cfg, optimizer, mesh: Mesh,
                             generator: torch.Generator,
                             scaler_mean: float = 0.0,
@@ -185,10 +163,10 @@ def make_sharded_train_step(model, train_cfg, optimizer, mesh: Mesh,
         raise ValueError("graph_backend='dense_ring' takes "
                          "make_ring_train_step")
     if mesh.node > 1:
+        rows = rank_rows(road_supports, mesh.node_index, mesh.node)
         return _megacrn_step(model, train_cfg, optimizer, generator,
-                             scaler_mean, scaler_std,
-                             _node_rows(model, road_supports, mesh),
-                             mesh.world, mesh.node_group, shard_nodes=True)
+                             scaler_mean, scaler_std, rows, mesh.world,
+                             mesh.node_group, shard_nodes=True)
     return make_shardmap_train_step(model, train_cfg, optimizer, mesh,
                                     generator, scaler_mean, scaler_std,
                                     road_supports)
@@ -211,23 +189,6 @@ def make_ring_train_step(model, train_cfg, optimizer, mesh: Mesh,
                          mesh.node_group, shard_nodes=True)
 
 
-def _local_road(sharded_packs, mesh: Mesh):
-    """The rank's part of a node-partitioned road constant."""
-    if isinstance(sharded_packs, (ShardedNodeELL, BucketedShardedNodeELL)):
-        local = local_node_ell(sharded_packs, mesh.node_index)
-    elif isinstance(sharded_packs, ShardedRoadPacks):
-        local = local_packs(sharded_packs, mesh.node_index)
-    else:
-        raise ValueError("sharded_packs must come from "
-                         "kernels.spmm.shard_road_packs or "
-                         "kernels.spmm_ell_node.shard_node_ell")
-    if sharded_packs.n_loc * mesh.node != sharded_packs.n_full:
-        raise ValueError(f"the packs are cut for "
-                         f"{sharded_packs.n_full // sharded_packs.n_loc} "
-                         f"node shards, the mesh has {mesh.node}")
-    return local
-
-
 def make_road_node_train_step(model, train_cfg, optimizer, mesh: Mesh,
                               sharded_packs, generator: torch.Generator,
                               scaler_mean: float = 0.0,
@@ -241,9 +202,9 @@ def make_road_node_train_step(model, train_cfg, optimizer, mesh: Mesh,
     if model.cfg.graph_backend != "road_sparse":
         raise ValueError("make_road_node_train_step requires "
                          "graph_backend='road_sparse'")
+    rows = rank_rows(sharded_packs, mesh.node_index, mesh.node)
     return _megacrn_step(model, train_cfg, optimizer, generator,
-                         scaler_mean, scaler_std,
-                         _local_road(sharded_packs, mesh), mesh.world,
+                         scaler_mean, scaler_std, rows, mesh.world,
                          mesh.node_group, shard_nodes=True)
 
 
@@ -290,16 +251,18 @@ def make_sharded_eval_forward(model, mesh: Mesh,
                          "make_road_node_eval_forward for road_sparse")
     if mesh.node == 1:
         return _eval_forward(model, mesh, road_supports, None)
-    return _eval_forward(model, mesh, _node_rows(model, road_supports, mesh),
-                         mesh.node_group)
+    return _eval_forward(
+        model, mesh, rank_rows(road_supports, mesh.node_index, mesh.node),
+        mesh.node_group)
 
 
 def make_road_node_eval_forward(model, mesh: Mesh,
                                 sharded_packs) -> Callable:
     """Eval forward of the node-partitioned road_sparse path; the outputs
     come back global."""
-    return _eval_forward(model, mesh, _local_road(sharded_packs, mesh),
-                         mesh.node_group)
+    return _eval_forward(
+        model, mesh, rank_rows(sharded_packs, mesh.node_index, mesh.node),
+        mesh.node_group)
 
 
 def make_gts_mesh_train_step(model, train_cfg, optimizer, mesh: Mesh,

@@ -12,17 +12,24 @@ ring hop, the neighbour's x block arriving by ``comm.ring_shift`` (the
 same product with the x blocks all-gathered at once: the counterpart of
 the all-gather that GSPMD inserts for the ``dense`` backend under a node
 axis. ``cheb_aggregate_sparse_sharded`` runs the block-ELL SpMM (the CUDA
-kernel on the card) on each rank's rectangular row-block packs, and
-``cheb_aggregate_learned_node_sharded`` / ``_sparse_sharded`` the learned
-``sparse_meta`` supports on each rank's rows of the edge pattern; these
-three all-gather the x node blocks once and re-gather each further
+kernel on the card) on each rank's rectangular row-block packs,
+``cheb_aggregate_node_ell_sharded`` the node-ELL gather-reduce on its rows,
+and ``cheb_aggregate_learned_node_sharded`` / ``_sparse_sharded`` the
+learned ``sparse_meta`` supports on each rank's rows of the edge pattern;
+these all-gather the x node blocks once and re-gather each further
 Chebyshev level (``cheb_stack_gathered``). All of them are
 differentiable: the shifts and gathers carry their transposes.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from megacrn_tpu_torch.kernels.sparse_graph import spmm_blocks
+from megacrn_tpu_torch.kernels.sparse_graph_node import learned_node_apply
+from megacrn_tpu_torch.kernels.spmm import spmm_batched
+from megacrn_tpu_torch.kernels.spmm_ell_node import apply_local_node_ell
 from megacrn_tpu_torch.parallel.comm import (Group, all_gather_nodes,
                                              ring_shift)
 
@@ -137,11 +144,19 @@ def cheb_aggregate_sparse_sharded(packs, x: torch.Tensor, cheb_k: int,
     of its rows for each support (``kernels.spmm.local_packs``) and runs
     the block-ELL SpMM on its rows only (``cheb_stack_gathered``); dx flows
     back through the transposed packs and the gathers' reduce-scatters."""
-    from megacrn_tpu_torch.kernels.spmm import spmm_batched
-
     return cheb_stack_gathered(
         len(packs), lambda s, t_full: spmm_batched(*packs[s], t_full), x,
         cheb_k, group)
+
+
+def cheb_aggregate_node_ell_sharded(pack, x: torch.Tensor, cheb_k: int,
+                                    group: Group) -> torch.Tensor:
+    """Node-partitioned Chebyshev stack: all-gather the x node blocks over
+    ``group`` (the mesh's node group), gather-reduce on the local rows
+    (``cheb_stack_gathered``). Output (B, n_loc, S*K, C), node-local.
+    ``pack``: ``LocalNodeELL`` or ``LocalBucketedNodeELL``."""
+    return cheb_stack_gathered(len(pack.nbr), functools.partial(
+        apply_local_node_ell, pack), x, cheb_k, group)
 
 
 def _on_nodes_first(apply, t_full: torch.Tensor) -> torch.Tensor:
@@ -161,9 +176,6 @@ def cheb_aggregate_learned_node_sharded(weights, local, x: torch.Tensor,
     ``LocalNodePattern`` ``local``); x: (B, n_loc, C) -> (B, n_loc,
     S*cheb_k, C). The weights' gradients stay on the rank (its rows only);
     x's come back through the gathers' reduce-scatters."""
-    from megacrn_tpu_torch.kernels.sparse_graph_node import \
-        learned_node_apply
-
     apply = learned_node_apply(local.pattern)
     return cheb_stack_gathered(
         len(weights), lambda s, t_full: _on_nodes_first(
@@ -176,8 +188,6 @@ def cheb_aggregate_learned_sparse_sharded(tiles, local, x: torch.Tensor,
     """The same stack over learned 128x128-tile supports: ``tiles`` are
     this rank's (``kernels.sparse_graph.sparse_meta_graph`` of its
     ``LocalBlockPattern`` ``local``)."""
-    from megacrn_tpu_torch.kernels.sparse_graph import spmm_blocks
-
     return cheb_stack_gathered(
         len(tiles), lambda s, t_full: _on_nodes_first(
             lambda v: spmm_blocks(tiles[s], local, v), t_full), x, cheb_k,

@@ -35,11 +35,11 @@ from megacrn_tpu_torch.config import MegaCRNConfig
 from megacrn_tpu_torch.interop import (gts_params_from_flat,
                                        megacrnx_params_from_flat,
                                        params_from_flat)
-from megacrn_tpu_torch.kernels.spmm_coo import StackedRoadPack, spmm_coo
+from megacrn_tpu_torch.kernels.spmm_coo import spmm_coo
 from megacrn_tpu_torch.models.gts import GTS
-from megacrn_tpu_torch.models.megacrn import (DTYPES, MegaCRN,
-                                              road_supports_to)
+from megacrn_tpu_torch.models.megacrn import DTYPES, MegaCRN
 from megacrn_tpu_torch.models.megacrnx import MegaCRNx
+from megacrn_tpu_torch.ops.graph import captured, road_supports_to
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.train.telemetry import span
 
@@ -54,6 +54,22 @@ class _Graph(NamedTuple):
     y_cov: torch.Tensor
     output: torch.Tensor
     launches: int
+
+
+def _predict_with_covariates(self, x: np.ndarray,
+                             y_cov: Optional[np.ndarray] = None
+                             ) -> np.ndarray:
+    """x: (B, seq_len, N, >=1) RAW (unnormalised) windows, channel 0 =
+    speed; y_cov: (B, horizon, N, ycov_dim) decoder covariates (zeros if
+    omitted). Returns (B, horizon, N, output_dim) raw-scale forecasts.
+    ``predict`` of ``Predictor`` and ``MegaCRNxPredictor``."""
+    cfg = self.cfg
+    x = np.asarray(x, np.float32)
+    if y_cov is None:
+        y_cov = np.zeros((x.shape[0], cfg.horizon, cfg.num_nodes,
+                          cfg.ycov_dim), np.float32)
+    return _run_batched(self._forward, self.max_batch,
+                        (x, np.asarray(y_cov, np.float32)))
 
 
 class Predictor:
@@ -75,20 +91,19 @@ class Predictor:
       device: where the model runs; the card unless the caller says
         otherwise (``resolve_device``).
 
-    On a CUDA device, a ``road_sparse`` model on a ``StackedRoadPack``
-    through the kernel runs each chunk size's forward as a CUDA graph: the
-    first chunk of a size runs eagerly, which builds the kernel and warms
-    cuBLAS and the allocator, and its forecasts are returned; then that
-    forward is captured from static input buffers, and every later chunk
-    of the size is copied into them and replayed. The graphs share one
+    Where ``ops.graph``'s table captures the graph constant's forward (on
+    a CUDA device, a ``StackedRoadPack`` through the block-COO kernel), the
+    model runs each chunk size's forward as a CUDA graph: the first chunk
+    of a size runs eagerly, which builds the kernel and warms cuBLAS and
+    the allocator, and its forecasts are returned; then that forward is
+    captured from static input buffers, and every later chunk of the size
+    is copied into them and replayed. The graphs share one
     memory pool, since one predictor replays them one after another on
     one stream, and each copy back blocks before the next replay. The
     weights and the graph constant are read where they lie when captured:
-    change them in place, never by assigning new tensors. Every other
-    backend stays eager: ``dense``, whose forward records the
-    ``graph.meta`` and ``graph.aggregate`` spans that a replay would not,
-    block-ELL pairs, node-ELL packs, ``sparse_meta``, and the pack's
-    ``reference`` impl, whose ``index_add_`` sums in no fixed order.
+    change them in place, never by assigning new tensors. The rest stays
+    eager, ``dense`` too: its forward records the ``graph.meta`` and
+    ``graph.aggregate`` spans that a replay would not.
     """
 
     def __init__(self, params_or_model, cfg: MegaCRNConfig,
@@ -106,14 +121,10 @@ class Predictor:
         self.std = float(scaler_std)
         self.max_batch = max_batch
         # Cast once here, so the forward's cast to compute_dtype is a no-op.
-        self.road_supports = (None if road_supports is None
-                              else road_supports_to(
-                                  road_supports, self.device,
-                                  DTYPES[cfg.compute_dtype]))
-        graphed = (self.device.type == "cuda"
-                   and cfg.graph_backend == "road_sparse"
-                   and isinstance(self.road_supports, StackedRoadPack)
-                   and self.road_supports.impl == "kernel")
+        self.road_supports = road_supports_to(road_supports, self.device,
+                                              DTYPES[cfg.compute_dtype])
+        graphed = captured(self.road_supports, cfg.graph_backend,
+                           self.device)
         # {windows: _Graph} of the sizes captured; None: forwards stay eager.
         self._graphs = {} if graphed else None
         self._pool = torch.cuda.graph_pool_handle() if graphed else None
@@ -165,18 +176,7 @@ class Predictor:
             self._graphs[len(x)] = _Graph(graph, x, y_cov, out.output,
                                           launches)
 
-    def predict(self, x: np.ndarray,
-                y_cov: Optional[np.ndarray] = None) -> np.ndarray:
-        """x: (B, seq_len, N, >=1) RAW (unnormalised) windows, channel 0 =
-        speed; y_cov: (B, horizon, N, ycov_dim) decoder covariates (zeros if
-        omitted). Returns (B, horizon, N, output_dim) raw-scale forecasts."""
-        cfg = self.cfg
-        x = np.asarray(x, np.float32)
-        if y_cov is None:
-            y_cov = np.zeros((x.shape[0], cfg.horizon, cfg.num_nodes,
-                              cfg.ycov_dim), np.float32)
-        return _run_batched(self._forward, self.max_batch,
-                            (x, np.asarray(y_cov, np.float32)))
+    predict = _predict_with_covariates
 
 
 def _run_batched(fwd, max_batch: int, arrays) -> np.ndarray:
@@ -332,16 +332,7 @@ class MegaCRNxPredictor:
             out = self.model(x[..., :self.cfg.input_dim], y_cov)
         return _copy_back(out.output[:nb], self.std, self.mean)
 
-    def predict(self, x: np.ndarray,
-                y_cov: Optional[np.ndarray] = None) -> np.ndarray:
-        """As ``Predictor.predict``."""
-        cfg = self.cfg
-        x = np.asarray(x, np.float32)
-        if y_cov is None:
-            y_cov = np.zeros((x.shape[0], cfg.horizon, cfg.num_nodes,
-                              cfg.ycov_dim), np.float32)
-        return _run_batched(self._forward, self.max_batch,
-                            (x, np.asarray(y_cov, np.float32)))
+    predict = _predict_with_covariates
 
 
 class StreamingForecaster:

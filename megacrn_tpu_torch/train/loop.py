@@ -126,9 +126,7 @@ def _mesh_steps(model, model_cfg, train_cfg, optimizer, generator, mesh,
     one; ``dense`` and ``sparse_meta`` the GSPMD counterpart. The eval step
     takes the full batch on the device, cuts the rank's block, and runs the
     metrics on the gathered outputs."""
-    from megacrn_tpu_torch.kernels.spmm import ShardedRoadPacks
-    from megacrn_tpu_torch.kernels.spmm_ell_node import (
-        BucketedShardedNodeELL, ShardedNodeELL)
+    from megacrn_tpu_torch.ops.graph import node_partitioned
     from megacrn_tpu_torch.parallel import api
     from megacrn_tpu_torch.parallel.mesh import shard_batch
 
@@ -139,8 +137,7 @@ def _mesh_steps(model, model_cfg, train_cfg, optimizer, generator, mesh,
         # The eval is data-parallel: outside the node partition dense_ring
         # is the dense path (the JAX fit does the same).
         eval_fwd = api.make_shardmap_eval_forward(model, mesh)
-    elif backend == "road_sparse" and isinstance(road_supports, (
-            ShardedRoadPacks, ShardedNodeELL, BucketedShardedNodeELL)):
+    elif backend == "road_sparse" and node_partitioned(road_supports):
         train_step = api.make_road_node_train_step(*args, road_supports,
                                                    generator, mean, std)
         eval_fwd = api.make_road_node_eval_forward(model, mesh,
@@ -190,8 +187,8 @@ def fit(
     which the port writes with ``torch.distributed.checkpoint``:
     ``train.checkpoint.save_checkpoint_dcp``).
     ``road_supports``: the graph constant of a ``road_sparse`` or
-    ``sparse_meta`` config (``models.megacrn.road_supports_to`` lists
-    them), moved to the device here.
+    ``sparse_meta`` config (``ops.graph.GRAPH_CONSTANTS`` lists them),
+    moved to the device here.
     ``initial_params``: a start point in the JAX package's flat naming
     (numpy arrays), in place of the seeded init (and re-init).
     ``profile_dir``: capture a ``torch.profiler`` trace of

@@ -21,9 +21,9 @@ import numpy as np
 import torch
 
 from megacrn_tpu_torch.config import TrainConfig
-from megacrn_tpu_torch.models.megacrn import (DTYPES, MegaCRN, MegaCRNOutput,
-                                              road_supports_to)
+from megacrn_tpu_torch.models.megacrn import DTYPES, MegaCRN, MegaCRNOutput
 from megacrn_tpu_torch.ops import losses
+from megacrn_tpu_torch.ops.graph import road_supports_to
 from megacrn_tpu_torch.ops.scaling import inverse_transform
 from megacrn_tpu_torch.train.optim import clip_gradients
 from megacrn_tpu_torch.train.telemetry import span
@@ -51,8 +51,6 @@ def composite_loss(out: MegaCRNOutput, y: torch.Tensor,
 def _model_supports(model: MegaCRN, road_supports, transpose: bool):
     """The graph constant on the model's device in its compute dtype; the
     transposed packs too when ``transpose`` (a backward reads them)."""
-    if road_supports is None:
-        return None
     return road_supports_to(road_supports, next(model.parameters()).device,
                             DTYPES[model.cfg.compute_dtype], transpose)
 

@@ -282,3 +282,39 @@ def test_fit_without_card_raises_unless_asked_for_cpu(tmp_path):
     cfg, train, data, run = _resume_setup(tmp_path, "nocard")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tloop.fit(cfg, dataclasses.replace(train, epochs=1), data, run)
+
+
+@pytest.mark.parametrize("backend,const,want", [
+    ("dense_ring", None, "ring"), ("road_sparse", None, "shardmap"),
+    ("road_sparse", "coo", "shardmap"), ("road_sparse", "sharded",
+                                         "road_node"),
+    ("dense", None, "sharded"), ("dense", "coo", "sharded"),
+    ("sparse_meta", "pattern", "sharded")])
+def test_mesh_run_takes_the_step_of_its_backend(monkeypatch, backend, const,
+                                                want):
+    """fit's mesh run picks its step as the JAX fit does: the ring step for
+    dense_ring; for road_sparse the node-partitioned step on sharded packs
+    and the data-parallel one otherwise (with no constant too, whose
+    forward then raises); the GSPMD counterpart for dense and sparse_meta,
+    whatever constant they are given."""
+    from megacrn_tpu_torch.kernels.sparse_graph_node import \
+        build_node_pattern
+    from megacrn_tpu_torch.kernels.spmm import shard_road_packs
+    from megacrn_tpu_torch.parallel import api
+
+    for name in ("ring", "shardmap", "road_node", "sharded"):
+        monkeypatch.setattr(api, f"make_{name}_train_step",
+                            lambda *a, _name=name, **k: _name)
+        monkeypatch.setattr(api, f"make_{name}_eval_forward",
+                            lambda *a, **k: None, raising=False)
+    adj = synthetic_road_adjacency(NODES, avg_degree=3, seed=0)
+    sups = list(dual_random_walk_supports(adj))
+    sup = {None: None, "coo": build_stacked_road_pack(sups),
+           "sharded": shard_road_packs(sups, 2),
+           "pattern": build_node_pattern((adj != 0).astype(np.float32)
+                                         + np.eye(NODES, dtype=np.float32))
+           }[const]
+    cfg = tconfig.MegaCRNConfig(**_model_kw(graph_backend=backend))
+    train_step, _ = tloop._mesh_steps(None, cfg, None, None, None, None,
+                                      0.0, 1.0, sup)
+    assert train_step == want

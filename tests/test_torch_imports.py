@@ -1,8 +1,13 @@
 """The port imports nothing of JAX, nothing of the JAX package, and not
-pandas (the machine with the card has numpy and scipy but no pandas)."""
+pandas (the machine with the card has numpy and scipy but no pandas); its
+kernels import nothing above them, and only ``ops.graph``'s table tests
+a graph constant's type."""
+import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -119,3 +124,94 @@ def test_chip_smoke_imports_no_jax():
             names.add(node.module)
     top = {n.split(".")[0] for n in names}
     assert not top & {"jax", "jaxlib", "megacrn_tpu"}, sorted(names)
+
+
+PORT = os.path.join(ROOT, "megacrn_tpu_torch")
+
+
+def _sources(*parts):
+    """(path, ast) of each module at ``parts`` under the port: a file or
+    every file of a directory."""
+    path = os.path.join(PORT, *parts)
+    files = ([path] if path.endswith(".py") else sorted(
+        os.path.join(path, f) for f in os.listdir(path) if f.endswith(".py")))
+    for f in files:
+        with open(f) as fh:
+            yield os.path.relpath(f, ROOT), ast.parse(fh.read())
+
+
+def _upward_imports():
+    """Imports from a kernel module of the packages above the kernels, at
+    the top of the module or inside a function; a relative import is
+    resolved against ``megacrn_tpu_torch.kernels``."""
+    above = {"ops", "parallel", "models", "train", "serve"}
+    bad = []
+    for path, tree in _sources("kernels"):
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = ["megacrn_tpu_torch", "kernels"][:max(
+                    0, 3 - node.level)] if node.level else []
+                module = ".".join(base + ([node.module] if node.module
+                                          else []))
+                names = [f"{module}.{a.name}" for a in node.names]
+            else:
+                continue
+            bad += [(path, node.lineno, n) for n in names
+                    if n.split(".")[:1] == ["megacrn_tpu_torch"]
+                    and n.split(".")[1:2] in [[a] for a in above]]
+    return bad
+
+
+def _constant_type_tests():
+    """``isinstance`` tests naming a graph-constant type (a NamedTuple
+    that a kernel module defines), directly or through a module-level
+    name, outside ``ops/graph.py``'s table and the kernel modules."""
+    types = {node.name for _, tree in _sources("kernels")
+             for node in ast.walk(tree) if isinstance(node, ast.ClassDef)
+             and any(getattr(b, "id", None) == "NamedTuple"
+                     for b in node.bases)}
+    bad = []
+    for parts in (("models",), ("train",), ("cli",), ("serve.py",),
+                  ("parallel", "api.py")):
+        for path, tree in _sources(*parts):
+            aliases = {t.id: node.value for node in tree.body
+                       if isinstance(node, ast.Assign)
+                       for t in node.targets if isinstance(t, ast.Name)}
+
+            def named(expr, seen=()):
+                out = set()
+                for n in ast.walk(expr):
+                    name = (n.id if isinstance(n, ast.Name) else n.attr
+                            if isinstance(n, ast.Attribute) else None)
+                    if name in types:
+                        out.add(name)
+                    elif name in aliases and name not in seen:
+                        out |= named(aliases[name], seen + (name,))
+                return out
+
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Call)
+                        and getattr(node.func, "id", None) == "isinstance"
+                        and len(node.args) == 2):
+                    bad += [(path, node.lineno, t)
+                            for t in sorted(named(node.args[1]))]
+    return bad, types
+
+
+@pytest.mark.parametrize("rule", ["kernels_import_nothing_above",
+                                  "no_type_tests_of_graph_constants"])
+def test_graph_constants_have_one_seam(rule):
+    """The layering around the graph constants, read from the sources: no
+    kernel module imports ``ops``, ``parallel``, ``models``, ``train`` or
+    ``serve``; and the model, the train loops, the CLIs, the predictors
+    and the mesh steps name no graph-constant type in an ``isinstance``
+    test, since ``ops.graph``'s table answers for each type."""
+    if rule == "kernels_import_nothing_above":
+        assert _upward_imports() == []
+    else:
+        bad, types = _constant_type_tests()
+        assert {"StackedRoadPack", "BlockELL", "LocalNodePattern",
+                "ShardedRoadPacks"} <= types
+        assert bad == []

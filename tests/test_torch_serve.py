@@ -77,7 +77,7 @@ def test_predictor_matches_jax(tmp_path, backend):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * STD)
 
 
-def test_predictor_chunks_and_pads_like_jax(tmp_path):
+def test_predictor_chunks_match_jax_and_single_windows(tmp_path):
     jpred, tpred = _pair(tmp_path, "road_sparse")
     x, _ = _requests(7, seed=1)  # 7 = 4 + 3: JAX pads the 3 to 4, the
     # port runs them as 3
@@ -111,7 +111,7 @@ def test_predictor_casts_only_the_forward_pack_once(dtype):
     assert np.isfinite(pred.predict(x)).all()
 
 
-def test_run_batched_pads_by_repeating_the_last_row():
+def test_run_batched_passes_the_last_chunk_unpadded():
     """The last chunk reaches ``fwd`` as its own rows: no copy of the last
     row is added to it."""
     seen = []
